@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Proof that the PyTorch/CUDA port (``src/repro_torch``) runs on one
 NVIDIA card: builds the hand-written kernels, holds each against its plain
-PyTorch version at the shapes of the main path, then drives the hotmem
-``ServeEngine`` on full-width qwen2-7b (random weights from a seed) through
-cold start, warm start, snapshot capture, restore, the paged copy-on-write
-remap, plug and unplug, and checks what comes out.
+PyTorch version at the shapes of the main path, drives the layout-contrast
+entry point (``launch/kernel_demo.py::layout_contrast``) at full width,
+then drives the hotmem ``ServeEngine`` on full-width qwen2-7b (random
+weights from a seed) through cold start, warm start, snapshot capture,
+restore, the paged copy-on-write remap, plug and unplug, and the vanilla
+paged ``ServeEngine`` through the same bursty trace and a scripted unplug
+that must migrate blocks, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -37,10 +40,13 @@ from repro_torch.cluster.host import HostMemoryBroker  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
+from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
+                                            scatter_to_pool)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
-from repro_torch.serving.request import PROFILES, Request  # noqa: E402
+from repro_torch.serving.request import (PROFILES,  # noqa: E402
+                                         FunctionProfile, Request)
 from repro_torch.serving.tracegen import (assign_profiles,  # noqa: E402
                                           bursty_trace)
 
@@ -48,6 +54,7 @@ ARCH = "qwen2-7b"
 PARTITION_TOKENS, N_PARTITIONS, BLOCK_TOKENS = 2048, 8, 32
 PAGE_BYTES = 2 << 20            # paged CoW: 56 pages of one 112 MiB row
 TOL_BF16, TOL_F32 = 2e-2, 2e-5  # the JAX package's kernel-test tolerances
+COMPACT_MOVES = 128             # kv_compact phase: tail [384, 512) -> head
 TIMED_RUNS = 20
 FLUSH_BYTES = 2 << 30
 DEV = torch.device("cuda", 0)
@@ -204,6 +211,7 @@ def phase_attention(cfg, gen) -> dict:
     row = {"name": "partition_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
            "replaces": "src/repro/kernels/partition_attention.py:70",
+           "path": "engine",
            "max_abs_err": errs["main"], "ms": median_ms(kernel),
            "plain_ms": median_ms(plain),
            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
@@ -213,6 +221,187 @@ def phase_attention(cfg, gen) -> dict:
           "errors": errs, "tight_limits": limits,
           "planted_fault_errors": faults, "sdpa_max_abs_err": sdpa_err,
           **row})
+    return row
+
+
+def _linear_slots(pos: torch.Tensor, t: int) -> int:
+    """Tokens at or before each row's position in a linear (paged) row of
+    ``t`` slots: the K/V the paged function needs to read for this run."""
+    return int(torch.clamp(pos.long() + 1, max=t).sum())
+
+
+def phase_paged_attention(cfg, gen) -> dict:
+    """``paged_attention`` at full width (P=8, T=2048 in MB=64 blocks of
+    BT=32, NB=512 pool blocks), driven first through ``layout_contrast``
+    with the launch counts set to 0 just before and read just after."""
+    p, t, hkv, dh = N_PARTITIONS, PARTITION_TOKENS, cfg.num_kv_heads, \
+        cfg.head_dim
+    g, bt = cfg.num_heads // hkv, BLOCK_TOKENS
+    bf16 = torch.bfloat16
+    q = randn((p, hkv, g, dh), bf16, gen)
+    k = randn((p, t, hkv, dh), bf16, gen)
+    v = randn((p, t, hkv, dh), bf16, gen)
+    lo = torch.randint(0, t, (p,), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    # the path: the layout-contrast entry point, counted on its own
+    ops.reset_launches()
+    lc = layout_contrast(q, k, v, lo, block_tokens=bt, seed=5)
+    torch.cuda.synchronize()
+    path_launches = dict(ops.LAUNCHES)
+    check(path_launches["paged_attention"] == 1
+          and path_launches["partition_attention"] == 1
+          and path_launches["kv_compact"] == 1,
+          f"layout_contrast launched its three kernels: {path_launches}")
+    ok, contrast_err, contrast_limit = attention_close(lc["paged"],
+                                                       lc["partition"])
+    check(ok, f"paged vs partition on the same K/V: error {contrast_err} "
+              f"within {TOL_BF16} and {contrast_limit}")
+    check(lc["compacted"], "layout_contrast's kv_compact moved its blocks")
+    del lc
+
+    # the kernel against its plain version on a fresh (uncompacted) pool
+    kp, vp, tables, _perm = scatter_to_pool(k, v, bt, seed=5)
+    nb, mb = kp.shape[0], tables.shape[1]
+    check((nb, mb) == (512, 64), f"pool of {nb} blocks, tables of {mb}")
+    ok, err, limit = attention_close(
+        ops.paged_attention(q, kp, vp, tables, lo),
+        ref.paged_attention(q, kp, vp, tables, lo))
+    check(ok, f"paged_attention main: error {err} within {TOL_BF16} and "
+              f"{limit}")
+    errs, limits = {"main": err, "vs_partition": contrast_err}, \
+        {"main": limit, "vs_partition": contrast_limit}
+    # planted faults the check must reject: one more token in every row
+    # (positions + 1), and the first block of the row with the fewest
+    # tokens pointed at another row's first block
+    r = int(torch.argmin(lo))
+    swapped = tables.clone()
+    swapped[r, 0] = tables[(r + 1) % p, 0]
+    faults = {}
+    for name, bad_tab, bad_pos in (("positions+1", tables, lo + 1),
+                                   ("foreign_block", swapped, lo)):
+        ok, e, lim = attention_close(
+            ops.paged_attention(q, kp, vp, bad_tab, bad_pos),
+            ref.paged_attention(q, kp, vp, tables, lo))
+        check(not ok, f"planted fault {name} passed the check: error {e} "
+                      f"within {lim}")
+        faults[name] = e
+    # f32, a ragged MB, BT = 24 (no power of two), G = 9 (two query
+    # blocks) and -1 entries after each row's last valid block
+    q2 = randn((3, 2, 9, 64), torch.float32, gen)
+    kp2 = randn((20, 24, 2, 64), torch.float32, gen)
+    vp2 = randn((20, 24, 2, 64), torch.float32, gen)
+    tab2 = torch.tensor([[3, 7, 11, -1, -1], [0, 1, 2, 4, 5],
+                         [19, 18, -1, -1, -1]], dtype=torch.int32,
+                        device=DEV)
+    pos2 = torch.tensor([3 * 24 - 5, 5 * 24 - 1, 2 * 24 - 20],
+                        dtype=torch.int32, device=DEV)
+    for name, qq, kw in (("f32_ragged", q2, {}),
+                         ("f32_logit_cap", q2 * 8, {"logit_cap": 30.0})):
+        ok, e = allclose(ops.paged_attention(qq, kp2, vp2, tab2, pos2, **kw),
+                         ref.paged_attention(qq, kp2, vp2, tab2, pos2, **kw),
+                         TOL_F32)
+        check(ok, f"paged_attention {name} within {TOL_F32}: {e}")
+        errs[name] = e
+
+    valid = _linear_slots(lo, mb * bt)
+    item = q.element_size()
+    nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p \
+        + 4 * tables.numel()
+    flops = 4.0 * valid * hkv * g * dh
+    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+    kernel = lambda: ops.paged_attention(q, kp, vp, tables, lo)  # noqa: E731
+    plain = lambda: ref.paged_attention(  # noqa: E731
+        q, kp, vp, tables, lo)
+    partition = lambda: ops.partition_attention(q, k, v, lo)  # noqa: E731
+    ms, partition_ms = median_ms(kernel), median_ms(partition)
+    row = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:65",
+           "path": "layout_contrast", "path_launches": path_launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": median_ms(plain),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": None}
+    emit({"phase": "kernel", "shape": [p, nb, bt, mb, hkv, g, dh],
+          "dtype": "bf16", "valid_slots": valid, "bytes": nbytes,
+          "flops": flops, "errors": errs, "tight_limits": limits,
+          "planted_fault_errors": faults,
+          "library": "none: no single PyTorch call computes paged attention",
+          "partition_ms": partition_ms, "gather_overhead": ms / partition_ms,
+          **row})
+    return row
+
+
+def phase_kv_compact(cfg, gen) -> dict:
+    """``kv_compact`` over two pool leaves shaped like the engine's,
+    (512, 32, 28, 4, 128) bf16, with 128 moves from the tail [384, 512)
+    into permuted head slots."""
+    shape = (4 * 128, BLOCK_TOKENS, cfg.num_layers, cfg.num_kv_heads,
+             cfg.head_dim)
+    leaves = [randn(shape, torch.bfloat16, gen) for _ in range(2)]
+    block_bytes = sum(x[0].numel() * x.element_size() for x in leaves)
+    check(block_bytes == 1_835_008 and sum(
+        x.numel() * x.element_size() for x in leaves) == 939_524_096,
+        f"pool leaves hold {block_bytes} bytes a block")
+    rng = np.random.default_rng(7)
+    src = [int(b) for b in rng.permutation(np.arange(384, 512))]
+    dst = [int(b) for b in rng.permutation(384)[:COMPACT_MOVES]]
+    s_t = torch.tensor(src, device=DEV)
+    d_t = torch.tensor(dst, device=DEV)
+
+    def bits(x):
+        return x.view(torch.int16)
+
+    a = [x.clone() for x in leaves]
+    b = [x.clone() for x in leaves]
+    c = [x.clone() for x in leaves]
+    ops.kv_compact(a, src, dst)
+    for x in b:
+        ref.kv_compact(x, s_t, d_t, len(src))
+    for x in c:
+        x[d_t] = x[s_t]
+    check(all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b)),
+          "kv_compact bit-exact against its plain version")
+    check(all(torch.equal(bits(x), bits(y)) for x, y in zip(a, c)),
+          "kv_compact bit-exact against leaf[dst] = leaf[src]")
+    check(all(torch.equal(bits(x[d_t]), bits(y[s_t]))
+              for x, y in zip(a, leaves)), "moved blocks arrived")
+    keep = torch.tensor(sorted(set(range(shape[0])) - set(dst)), device=DEV)
+    check(all(torch.equal(bits(x[keep]), bits(y[keep]))
+              for x, y in zip(a, leaves)), "blocks not named untouched")
+    del a, b, c
+    refused = {}
+    for name, bad_src, bad_dst in (("dst is another move's src",
+                                    [500, 400], [400, 3]),
+                                   ("two moves, one dst", [500, 501],
+                                    [3, 3])):
+        try:
+            ops.kv_compact(leaves, bad_src, bad_dst)
+        except ValueError as e:
+            refused[name] = str(e)
+        check(name in refused, f"kv_compact accepted a move list where "
+                               f"{name}")
+    nbytes = 2 * COMPACT_MOVES * block_bytes + 8 * COMPACT_MOVES
+    bound_s, bound_by = roofline.bound_seconds(nbytes)
+
+    def library():
+        for x in leaves:
+            x[d_t] = x[s_t]
+
+    def plain():
+        for x in leaves:
+            ref.kv_compact(x, s_t, d_t, len(src))
+
+    row = {"name": "kv_compact", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/kv_compact.cu",
+           "replaces": "src/repro/kernels/kv_compact.py:27",
+           "path": "engine", "max_abs_err": 0.0,
+           "ms": median_ms(lambda: ops.kv_compact(leaves, src, dst)),
+           "plain_ms": median_ms(plain), "bound_ms": bound_s * 1e3,
+           "bound_by": bound_by, "library_ms": median_ms(library)}
+    emit({"phase": "kernel", "leaves": [list(shape)] * 2, "dtype": "bf16",
+          "moves": COMPACT_MOVES, "block_bytes": block_bytes,
+          "bytes": nbytes, "refused": refused,
+          "library": "leaf[dst] = leaf[src], per leaf", **row})
     return row
 
 
@@ -292,10 +481,19 @@ def phase_snapshot(cfg, gen) -> list[dict]:
         leaves, r, layout)
     plain_restore = lambda: ref.snapshot_restore(  # noqa: E731
         leaves, blob, r, layout)
+    # the kernel with its row ids copied to the card synchronously, as the
+    # wrapper did before it staged them through pinned memory: the host's
+    # work after that copy lands inside the events
+    sync_rows = lambda: kv_snapshot.snapshot_capture(  # noqa: E731
+        ops.load(), leaves,
+        torch.tensor(rows, dtype=torch.int32, device=DEV), layout=layout)
+    check(torch.equal(bits(sync_rows()), bits(blob)),
+          "capture with synchronously copied rows equals the blob")
     out = [
         {"name": "snapshot_capture", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:123",
+         "path": "engine",
          "max_abs_err": 0.0, "ms": median_ms(capture),
          "plain_ms": median_ms(plain_capture),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
@@ -303,11 +501,13 @@ def phase_snapshot(cfg, gen) -> list[dict]:
         {"name": "snapshot_restore", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:160",
+         "path": "engine",
          "max_abs_err": 0.0, "ms": median_ms(restore),
          "plain_ms": median_ms(plain_restore),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
          "library_ms": median_ms(lib_restore)},
     ]
+    out[0]["ms_sync_staged_rows"] = median_ms(sync_rows)
     for row in out:
         emit({"phase": "kernel", "rows": 1, "row_bytes": row_bytes,
               "bytes": nbytes, "checked_rows": list(errs), **row})
@@ -338,7 +538,87 @@ def _bursty(seed=3, duration=16.0):
             for i, (t, p) in enumerate(assign_profiles(arr, PROFILES, seed))]
 
 
-def phase_engine(cfg) -> tuple[dict, dict, dict]:
+def _measure_unplugs(eng, drops: list) -> None:
+    """Record each vanilla unplug's drop of ``memory_allocated()`` (its
+    pool shrinks in the arena; the row view stays full-size)."""
+    unplug = eng.arena.unplug
+
+    def measured(units, notify_host=True):
+        blocks = eng.arena.units()
+        before = torch.cuda.memory_allocated(DEV)
+        ev = unplug(units, notify_host)
+        torch.cuda.synchronize()
+        drops.append({"blocks": blocks, "kept": eng.arena.units(),
+                      "migrated_blocks": ev.migrated_blocks,
+                      "freed_bytes": before
+                      - torch.cuda.memory_allocated(DEV)})
+        return ev
+    eng.arena.unplug = measured
+
+
+def _fill_random(tensors, gen) -> None:
+    """Random content in place (a helper, so that no loop variable keeps a
+    tensor alive in the caller: the unplug check counts freed bytes)."""
+    for x in tensors:
+        x.copy_(randn(x.shape, x.dtype, gen))
+
+
+def _vanilla_migration(eng, gen) -> dict:
+    """A scripted vanilla schedule whose unplug must migrate: seven short
+    requests grow the pool to 8 partitions, a half-partition request then
+    takes blocks all over it, the seven expire and the shrink to 2
+    partitions has to move the long request's tail blocks into the head.
+    The plan is checked before the unplug (so migration does not depend
+    on walls), and the copies are checked on the pool's content."""
+    mgr, bpp = eng.arena.manager, eng.spec.blocks_per_partition
+    empty = deque()
+    for i in range(7):
+        eng.submit(Request(rid=f"v{i}", profile=PROFILES["bert"],
+                           submit_s=eng.now))
+    while eng.active or eng.pending:
+        eng._tick(empty)
+    check(eng._units() == N_PARTITIONS, "the short burst grew the pool")
+    long = FunctionProfile("long", prompt_tokens=PARTITION_TOKENS // 2,
+                           decode_tokens=8, max_tokens=PARTITION_TOKENS)
+    eng.submit(Request(rid="L", profile=long, submit_s=eng.now))
+    while eng.active or eng.pending:
+        eng._tick(empty)
+    for prof in [k for k in eng.warm if k != "long"]:
+        for _t, rid, _row in eng.warm.pop(prof):
+            eng.arena.finish(rid)
+    units = (eng._units() - eng.ladder[0]) * bpp
+    k, moves = mgr.shrink_plan(units)
+    check(moves and k == units,
+          f"shrink plan of {units} blocks migrates: k={k}, {len(moves)} moves")
+    _fill_random(eng.pool, gen)
+    before = [x.clone() for x in eng.pool]
+    n_events = len(mgr.reclaim_events)
+    eng._resize()
+    evs = mgr.reclaim_events[n_events:]
+    check(len(evs) == 1 and evs[0].migrated_blocks == len(moves)
+          and evs[0].reclaimed_units == units,
+          f"one unplug of {units} blocks moved {len(moves)} blocks")
+    src = torch.tensor([m[0] for m in moves], device=DEV)
+    dst = torch.tensor([m[1] for m in moves], device=DEV)
+    kept = torch.tensor(sorted(set(range(mgr.pool_blocks))
+                               - {m[1] for m in moves}), device=DEV)
+    check(all(torch.equal(x[dst].view(torch.int16),
+                          y[src].view(torch.int16))
+              and torch.equal(x[kept].view(torch.int16),
+                              y[kept].view(torch.int16))
+              for x, y in zip(eng.pool, before)),
+          "migrated blocks arrived, kept blocks untouched")
+    del before
+    eng.submit(Request(rid="L2", profile=long, submit_s=eng.now))
+    while eng.active or eng.pending:
+        eng._tick(empty)
+    check(eng.warm_starts >= 1, "the long request warm-started again")
+    return {"moves": len(moves), "unplug_blocks": units,
+            "migrated_bytes": evs[0].migrated_bytes,
+            "unplug_wall_ms": evs[0].wall_seconds * 1e3}
+
+
+def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     params = M.init_params(cfg, 0, device=DEV)
     torch.cuda.synchronize()
@@ -374,7 +654,15 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
                         broker=cow_broker, replica_id="B",
                         snapshot_page_bytes=PAGE_BYTES)
     burst = ServeEngine(cfg, params, spec, mode="hotmem", keep_alive=3.0)
-    engines = (snap, cow_a, cow_b, burst)
+    van = ServeEngine(cfg, params, spec, mode="vanilla", keep_alive=3.0)
+    van_s = ServeEngine(cfg, params, spec, mode="vanilla", keep_alive=1000.0,
+                        seed=1)
+    hotmem_engines = (snap, cow_a, cow_b, burst)
+    vanilla_engines = (van, van_s)
+    engines = hotmem_engines + vanilla_engines
+    van_drops = []
+    for eng in vanilla_engines:
+        _measure_unplugs(eng, van_drops)
 
     drops = []
     sync_rows = burst._sync_rows
@@ -418,6 +706,12 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
     # (c) a bursty trace that plugs up the ladder and unplugs back down
     reqs = _bursty()
     m_burst = burst.run(reqs, max_virtual_s=2000)
+    # (d) the vanilla paged baseline on the same trace, and (e) a scripted
+    # vanilla unplug that must migrate
+    van_reqs = _bursty()
+    m_van = van.run(van_reqs, max_virtual_s=2000)
+    scripted = _vanilla_migration(van_s, gen)
+    m_van_s = van_s.metrics()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = dict(ops.LAUNCHES)
@@ -426,12 +720,31 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
     decode_steps = sum(e.metrics()["decode_steps"] for e in engines)
     row_bytes = kv_snapshot.expected_row_bytes(cfg, PARTITION_TOKENS)
     cow_ev = [e for e in cow_a.events if e.kind == "restore"]
+    van_events = [ev for e in vanilla_engines
+                  for ev in e.arena.manager.reclaim_events]
+    passes = sum(1 for ev in van_events if ev.migrated_blocks)
+    for eng in vanilla_engines:
+        eng.arena.manager.check_invariants()
     checks = {
-        "completed == submitted": m_burst["completed"] == len(reqs),
+        "completed == submitted": m_burst["completed"] == len(reqs)
+        and m_van["completed"] == len(van_reqs)
+        and m_van_s["completed"] == len(van_s.done) == 9,
         "killed == 0": m_burst["killed"] == 0 and all(
             e.metrics()["killed"] == 0 for e in engines),
-        "migrated_bytes == 0": all(
-            e.metrics()["migrated_bytes"] == 0 for e in engines),
+        "hotmem migrated_bytes == 0": all(
+            e.metrics()["migrated_bytes"] == 0 for e in hotmem_engines),
+        "vanilla migrated_bytes > 0, == blocks x 1,835,008":
+            m_van["migrated_bytes"] + m_van_s["migrated_bytes"] > 0
+            and spec.bytes_per_block == 1_835_008 and all(
+                ev.migrated_bytes == ev.migrated_blocks * 1_835_008
+                for ev in van_events),
+        "vanilla reclaimed_bytes > 0": m_van["reclaimed_bytes"] > 0
+        and m_van_s["reclaimed_bytes"] > 0,
+        "kv_compact launches == migration passes":
+            launches["kv_compact"] == passes > 0,
+        "vanilla unplugs free device memory": bool(van_drops) and all(
+            d["freed_bytes"] >= (d["blocks"] - d["kept"])
+            * spec.bytes_per_block for d in van_drops),
         "reclaimed_bytes > 0": m_burst["reclaimed_bytes"] > 0,
         "plugged and unplugged": any(
             e.kind == "plug" for e in burst.events) and any(
@@ -459,6 +772,14 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
     }
     walls = {k: [e.wall_s for e in snap.events if e.kind == k]
              for k in ("prefill", "snapshot", "restore")}
+    unplug_ms = {
+        "hotmem": [e.wall_s * 1e3 for e in burst.events
+                   if e.kind == "unplug"],
+        "vanilla": [e.wall_s * 1e3 for e in van.events
+                    if e.kind == "unplug"],
+        "vanilla_scripted": [e.wall_s * 1e3 for e in van_s.events
+                             if e.kind == "unplug"]}
+    van_decode = [e.wall_s * 1e3 for e in van.events if e.kind == "decode"]
     burst_walls = {k: [e.wall_s * 1e3 for e in burst.events if e.kind == k]
                    for k in ("decode", "prefill", "plug", "unplug")}
     wall_stats = {k: {"n": len(v), "median": float(np.median(v)),
@@ -467,6 +788,11 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
     emit({"phase": "engine", "run_seconds": run_s,
           "decode_steps": decode_steps, "launches": launches,
           "stats": stats, "unplug_memory": drops,
+          "vanilla_unplug_memory": van_drops,
+          "unplug_walls_ms": unplug_ms, "vanilla_scripted": scripted,
+          "vanilla_burst": {k: v for k, v in m_van.items() if k != "events"},
+          "vanilla_migrated_blocks": [ev.migrated_blocks
+                                      for ev in van_events],
           "snapshot_walls_s": walls, "burst_walls_ms": wall_stats,
           "burst": {k: v for k, v in m_burst.items() if k != "events"},
           "snapshot_schedule": {k: v for k, v in m_snap.items()
@@ -494,7 +820,21 @@ def phase_engine(cfg) -> tuple[dict, dict, dict]:
                "snapshot_walls_ms": {k: [x * 1e3 for x in v]
                                      for k, v in walls.items()},
                "unplug_freed_bytes": [d["freed_bytes"] for d in drops],
-               "reclaimed_bytes": m_burst["reclaimed_bytes"]}
+               "reclaimed_bytes": m_burst["reclaimed_bytes"],
+               "unplug_walls_ms": unplug_ms,
+               "vanilla": {
+                   "migrated_bytes": m_van["migrated_bytes"]
+                   + m_van_s["migrated_bytes"],
+                   "migrated_blocks": [ev.migrated_blocks
+                                       for ev in van_events],
+                   "reclaimed_bytes": m_van["reclaimed_bytes"]
+                   + m_van_s["reclaimed_bytes"],
+                   "unplug_freed_bytes": [d["freed_bytes"]
+                                          for d in van_drops],
+                   "decode_median_ms": float(np.median(van_decode)),
+                   "latency_p50_s": m_van["latency_p50"],
+                   "latency_p99_s": m_van["latency_p99"],
+                   "kv_compact_launches": launches["kv_compact"]}}
     return launches, params, summary
 
 
@@ -602,15 +942,21 @@ def main() -> None:
     cfg = get_config(ARCH)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
-    rows = [phase_attention(cfg, gen)] + phase_snapshot(cfg, gen)
+    rows = [phase_attention(cfg, gen), phase_paged_attention(cfg, gen),
+            phase_kv_compact(cfg, gen)] + phase_snapshot(cfg, gen)
     torch.cuda.empty_cache()
-    launches, params, summary = phase_engine(cfg)
+    launches, params, summary = phase_engine(cfg, gen)
     summary.update(phase_profile(cfg, params))
     del params
     summary["reference_max_abs_err"] = phase_reference()
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        check(row["launches"] > 0, f"{row['name']} ran on the main path")
+        # each kernel's count from the run of the path that drives it: the
+        # engine run, or the layout-contrast entry point
+        counts = launches if row["path"] == "engine" \
+            else row["path_launches"]
+        row["launches"] = counts[row["name"]]
+        check(row["launches"] > 0,
+              f"{row['name']} ran on the {row['path']} path")
     emit({"phase": "summary", **summary})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,12 +1,18 @@
 """Elastic arena: bucket ladder + the device-side data plane.
 
-Port of ``repro.core.elastic`` for the HotMem and static modes.  VM resize
-(virtio-mem plug/unplug) is a ladder of arena sizes; moving down the ladder
-is HotMem's zero-migration shrink: live partitions are whole rows, so a
-shrink is O(1) metadata plus a prefix copy of the kept rows into fresh
-storage (the old tensors are freed, which is what reclaims the memory).
-The vanilla paged mode (migration copies before a shrink) comes with the
-port's next slice and raises here.
+Port of ``repro.core.elastic``.  VM resize (virtio-mem plug/unplug) is a
+ladder of arena sizes.  Moving *down* the ladder is where the two managers
+diverge — the paper's entire point:
+
+  * HotMem: live partitions are whole rows; shrink = O(1) metadata plus a
+    prefix copy of the kept rows into fresh storage.  Zero migrations.
+  * Vanilla: live blocks are scattered; shrink must first run a migration
+    pass (``apply_migrations``: one ``kv_compact`` launch on the card,
+    copying live tail blocks into free head slots in place), then truncate
+    into fresh storage.  Copy bytes grow with occupancy.
+
+Either way the old tensors are freed, which is what reclaims the memory,
+and every timed region ends in a device synchronise.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import torch
 
 from repro_torch.core.arena import ArenaSpec, ReclaimEvent
 from repro_torch.core.hotmem import HotMemManager
+from repro_torch.core.vanilla import VanillaPagedManager
+from repro_torch.kernels import ops
 from repro_torch.models.layers import tree_leaves, tree_map
 
 # ---------------------------------------------------------------------------
@@ -65,7 +73,7 @@ def zero_rows(caches, lo: int, count: int):
 
 
 def slice_rows(caches, new_rows: int):
-    """HotMem bucket-shrink: keep the row prefix, in fresh storage."""
+    """Bucket-shrink: keep the row prefix, in fresh storage."""
     return tree_map(lambda x: x[:new_rows].clone(), caches)
 
 
@@ -80,6 +88,51 @@ def grow_rows(caches, new_rows: int):
     return tree_map(g, caches)
 
 
+def apply_migrations(pool, src, dst, count: int):
+    """Vanilla migration pass, in place: ``pool[dst[i]] = pool[src[i]]`` for
+    ``i < count`` on every leaf of ``pool`` — one ``kv_compact`` launch for
+    all leaves on the card.  ``src``/``dst`` are sequences of ints; a move
+    whose ``dst`` is out of range is dropped (the arena pads with
+    ``dst = NB``, as the JAX package's fixed-capacity vectors do).  Returns
+    ``pool``."""
+    ops.kv_compact(tree_leaves(pool), src, dst, count)
+    return pool
+
+
+def pool_rows(pool) -> int:
+    return tree_leaves(pool)[0].shape[0]
+
+
+def gather_blocks(pool, tables: torch.Tensor):
+    """Paged read: (NB, BT, ...) pool + (P, max_blocks) tables ->
+    (P, max_blocks*BT, ...) row-contiguous copy, zero where a table slot
+    is unmapped (-1).  The per-step gather the vanilla layout pays (fused
+    by the paged attention kernel); HotMem's contiguous rows skip it."""
+    keep = tables >= 0
+
+    def g(x):
+        bt = x.shape[1]
+        out = x[tables.long().clamp(min=0)]            # (P, MB, BT, ...)
+        out = torch.where(
+            keep.reshape(tables.shape + (1,) * (x.dim() - 1)), out,
+            torch.zeros((), dtype=out.dtype, device=out.device))
+        return out.reshape((tables.shape[0], tables.shape[1] * bt)
+                           + tuple(x.shape[2:]))
+    return tree_map(g, pool)
+
+
+def scatter_blocks(pool, rows, tables: torch.Tensor):
+    """Write row-layout updates back into the pool through the tables, in
+    place; unmapped (-1) slots write nothing.  Returns ``pool``."""
+    keep = (tables >= 0).reshape(-1)
+    idx = tables.long().reshape(-1)[keep]
+    for x, r in zip(tree_leaves(pool), tree_leaves(rows), strict=True):
+        bt = x.shape[1]
+        upd = r.reshape((-1, bt) + tuple(x.shape[2:]))[keep]
+        x.index_copy_(0, idx, upd.to(x.dtype))
+    return pool
+
+
 # ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
@@ -88,8 +141,9 @@ def grow_rows(caches, new_rows: int):
 class ElasticArena:
     """One replica's arena: manager (metadata) + optional device cache tree.
 
-    ``mode``: "hotmem" | "static" (statically over-provisioned — the
-    paper's third comparison point: never resizes).
+    ``mode``: "hotmem" | "vanilla" | "static" (statically over-provisioned
+    — the paper's third comparison point: never resizes).  For "vanilla",
+    ``caches`` is the block pool (leading axis = blocks).
 
     ``grant`` / ``release`` are the host gate (virtio-mem): when set,
     growth is a *request* — ``grant(units)`` returns how many units the
@@ -97,16 +151,18 @@ class ElasticArena:
     through ``release``.  Without them the arena resizes unilaterally.
     """
 
+    MOVE_CAPACITY = 256      # padded migration vector (the JAX package's)
+
     def __init__(self, cfg, spec: ArenaSpec, mode: str, caches=None,
-                 grant=None, release=None):
-        if mode not in ("hotmem", "static"):
-            raise NotImplementedError(
-                f"arena mode {mode!r} is not ported yet (hotmem, static)")
+                 seed: int = 0, grant=None, release=None):
         self.cfg = cfg
         self.spec = spec
         self.mode = mode
         self.caches = caches
-        self.manager = HotMemManager(spec)
+        if mode == "vanilla":
+            self.manager = VanillaPagedManager(spec, seed=seed)
+        else:
+            self.manager = HotMemManager(spec)
         self._grant: Optional[Callable[[int], int]] = grant
         self._release: Optional[Callable[[int], None]] = release
         self.plug_seconds: list[float] = []
@@ -124,6 +180,8 @@ class ElasticArena:
 
     # ------------------------------------------------------------- elastic
     def units(self) -> int:
+        if self.mode == "vanilla":
+            return self.manager.pool_blocks
         return self.manager.plugged
 
     def plug(self, units: int) -> float:
@@ -140,8 +198,8 @@ class ElasticArena:
         """Grant-completion path: absorb ``units`` the host has *already*
         delivered, skipping the host gate.  Same device work as ``plug``:
         grow rows, zero-fill, hand back any units the manager can't
-        take.  (A partition stripes wholly over a sharded host, so only
-        the vanilla mode's block granules need a stripe check.)"""
+        take.  (The engine keeps the vanilla mode off sharded hosts, so no
+        stripe check is needed here.)"""
         if units <= 0 or self.mode == "static":
             return 0.0
         t0 = time.perf_counter()
@@ -158,15 +216,39 @@ class ElasticArena:
         return dt
 
     def unplug(self, units: int, notify_host: bool = True) -> ReclaimEvent:
-        """Shrink the arena: metadata + prefix slice.  Real device timings.
-        Reclaimed units flow back to the host gate unless ``notify_host``
-        is False (the broker-initiated steal path, which does its own
-        accounting)."""
+        """Shrink the arena; HotMem = metadata + prefix slice, vanilla =
+        migration copies + prefix slice.  Real device timings.  Reclaimed
+        units flow back to the host gate unless ``notify_host`` is False
+        (the broker-initiated steal path, which does its own accounting)."""
         assert self.mode != "static"
         t0 = time.perf_counter()
-        ev = self.manager.unplug(units)
-        if ev.reclaimed_units and self.caches is not None:
-            self.caches = slice_rows(self.caches, self.manager.plugged)
+        if self.mode == "hotmem":
+            ev = self.manager.unplug(units)
+            if ev.reclaimed_units and self.caches is not None:
+                self.caches = slice_rows(self.caches, self.manager.plugged)
+                sync(self.caches)
+            ev.wall_seconds = time.perf_counter() - t0
+            if notify_host and self._release is not None \
+                    and ev.reclaimed_units:
+                self._release(ev.reclaimed_units)
+            return ev
+        # vanilla: plan migrations, run copies, then commit + truncate
+        k, moves = self.manager.shrink_plan(units)
+        copy_s = 0.0
+        if self.caches is not None and moves:
+            nmov = len(moves)
+            cap = max(self.MOVE_CAPACITY, ((nmov + 255) // 256) * 256)
+            src = [0] * cap
+            dst = [pool_rows(self.caches)] * cap
+            src[:nmov] = [m[0] for m in moves]
+            dst[:nmov] = [m[1] for m in moves]
+            tc = time.perf_counter()
+            self.caches = apply_migrations(self.caches, src, dst, nmov)
+            sync(self.caches)
+            copy_s = time.perf_counter() - tc
+        ev = self.manager.apply_shrink(k, moves, copy_seconds=copy_s)
+        if k and self.caches is not None:
+            self.caches = slice_rows(self.caches, self.manager.pool_blocks)
             sync(self.caches)
         ev.wall_seconds = time.perf_counter() - t0
         if notify_host and self._release is not None and ev.reclaimed_units:

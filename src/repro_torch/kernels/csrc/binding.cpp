@@ -1,10 +1,11 @@
 // Python binding of the port's CUDA kernels (partition_attention.cu,
-// kv_snapshot.cu), built with torch.utils.cpp_extension.load.  This is the
-// one source that includes torch's headers; the kernels' own sources see
-// only the CUDA runtime.  The Python wrappers (kernels/partition_attention.py,
-// kernels/kv_snapshot.py) check devices, dtypes, shapes and alignment and
-// pass the current stream; here each entry point hands the tensors' pointers
-// to its launcher and raises if the launch was refused.
+// paged_attention.cu, kv_snapshot.cu, kv_compact.cu), built with
+// torch.utils.cpp_extension.load.  This is the one source that includes
+// torch's headers; the kernels' own sources see only the CUDA runtime.  The
+// Python wrappers (kernels/partition_attention.py, paged_attention.py,
+// kv_snapshot.py, kv_compact.py) check devices, dtypes, shapes and alignment
+// and pass the current stream; here each entry point hands the tensors'
+// pointers to its launcher and raises if the launch was refused.
 #include <torch/extension.h>
 
 #include <vector>
@@ -14,11 +15,20 @@ int partition_attention(const void* q, const void* k, const void* v,
                         int hkv, int g, int dh, int is_bf16, float scale,
                         float cap, int window, void* stream);
 int partition_attention_prepare();
+int paged_attention(const void* q, const void* k, const void* v,
+                    const void* tables, const void* positions, void* out,
+                    int p, int nb, int bt, int mb, int hkv, int g, int dh,
+                    int is_bf16, float scale, float cap, void* stream);
+int paged_attention_prepare();
 int snapshot_copy(int capture, const void* const* ptrs,
                   const long long* desc, int n_leaves, void* blob,
                   const void* rows, int n_rows, long long row_units,
                   int unit_bytes, void* stream);
 int snapshot_prepare();
+int kv_compact(const void* const* ptrs, const long long* block_bytes,
+               int n_leaves, const void* moves, int n_moves, int unit_bytes,
+               void* stream);
+int kv_compact_prepare();
 
 namespace {
 
@@ -39,6 +49,21 @@ void attention(const torch::Tensor& q, const torch::Tensor& k,
         "partition_attention launch");
 }
 
+// q (P, Hkv, G, Dh), k/v_pool (NB, BT, Hkv, Dh), out like q,
+// tables (P, MB) and positions (P,) int32
+void paged(const torch::Tensor& q, const torch::Tensor& k,
+           const torch::Tensor& v, const torch::Tensor& tables,
+           const torch::Tensor& positions, const torch::Tensor& out,
+           double scale, double cap, int64_t stream) {
+  check(paged_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), q.size(0), k.size(0),
+            k.size(1), tables.size(1), q.size(1), q.size(2), q.size(3),
+            q.scalar_type() == torch::kBFloat16, scale, cap,
+            reinterpret_cast<void*>(stream)),
+        "paged_attention launch");
+}
+
 // desc: per leaf (outer, batch, inner, offset) in copy units
 void snapshot(bool capture, const std::vector<torch::Tensor>& leaves,
               const std::vector<int64_t>& desc, const torch::Tensor& blob,
@@ -53,16 +78,33 @@ void snapshot(bool capture, const std::vector<torch::Tensor>& leaves,
         "snapshot kernel launch");
 }
 
+// moves: int32 (2, M) on the device, sources then destinations
+void compact(const std::vector<torch::Tensor>& pools,
+             const std::vector<int64_t>& block_bytes,
+             const torch::Tensor& moves, int64_t unit_bytes, int64_t stream) {
+  std::vector<const void*> ptrs;
+  for (const auto& pool : pools) ptrs.push_back(pool.data_ptr());
+  const std::vector<long long> b(block_bytes.begin(), block_bytes.end());
+  check(kv_compact(ptrs.data(), b.data(), (int)ptrs.size(), moves.data_ptr(),
+                   moves.size(1), unit_bytes,
+                   reinterpret_cast<void*>(stream)),
+        "kv_compact launch");
+}
+
 // loads every kernel's code onto the current device without launching it
 void prepare() {
   check(partition_attention_prepare(), "loading partition_attention");
+  check(paged_attention_prepare(), "loading paged_attention");
   check(snapshot_prepare(), "loading the snapshot kernels");
+  check(kv_compact_prepare(), "loading kv_compact");
 }
 
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("partition_attention", &attention);
+  m.def("paged_attention", &paged);
   m.def("snapshot_copy", &snapshot);
+  m.def("kv_compact", &compact);
   m.def("prepare", &prepare);
 }

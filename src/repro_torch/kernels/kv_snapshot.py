@@ -86,18 +86,24 @@ def build_layout(leaves: Sequence[Any], axes: Sequence[int]) -> RowLayout:
 # ---------------------------------------------------------------------------
 
 
+def widest_unit(sizes) -> int:
+    """Widest copy unit (16, 8, 4, 2 or 1 bytes) dividing every size and
+    address in ``sizes``."""
+    for unit in (16, 8, 4, 2, 1):
+        if all(s % unit == 0 for s in sizes):
+            return unit
+    raise AssertionError("unreachable: 1 divides everything")
+
+
 def _unit_bytes(layout: RowLayout, leaves, blob) -> int:
-    """Widest copy unit (16, 8, 4, 2 or 1 bytes) dividing every chunk
-    size, blob offset, row size and base address."""
+    """Widest copy unit dividing every chunk size, blob offset, row size
+    and base address."""
     item = layout.itemsize
     sizes = [layout.total_elems * item, blob.data_ptr()]
     for leaf, slot in zip(leaves, layout.slots):
         inner = math.prod(slot.block_shape[slot.axis + 1:])
         sizes += [inner * item, slot.offset * item, leaf.data_ptr()]
-    for unit in (16, 8, 4, 2, 1):
-        if all(s % unit == 0 for s in sizes):
-            return unit
-    raise AssertionError("unreachable: 1 divides everything")
+    return widest_unit(sizes)
 
 
 def _launch(ext, capture: bool, leaves, blob, rows, layout: RowLayout):

@@ -8,7 +8,7 @@ wrapper adds one to its entry of ``LAUNCHES`` where it launches its kernel,
 and nowhere else, so a run can show that it went through the kernels.
 
 Kernels are built at first use by ``torch.utils.cpp_extension.load`` from
-``csrc/`` (the two CUDA sources, for ``sm_90a``, and ``binding.cpp``, the
+``csrc/`` (the four CUDA sources, for ``sm_90a``, and ``binding.cpp``, the
 one file that includes torch's headers) into ``build/torch_kernels/`` at the
 repository root; ``load`` rebuilds when a source or flag changes.
 """
@@ -18,17 +18,20 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import kv_compact as _kvc
 from repro_torch.kernels import kv_snapshot as _kvs
+from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import partition_attention as _pa
 from repro_torch.kernels import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("binding.cpp", "partition_attention.cu", "kv_snapshot.cu")
+SOURCES = ("binding.cpp", "partition_attention.cu", "paged_attention.cu",
+           "kv_snapshot.cu", "kv_compact.cu")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"partition_attention": 0, "snapshot_capture": 0,
-            "snapshot_restore": 0}
+LAUNCHES = {"partition_attention": 0, "paged_attention": 0,
+            "snapshot_capture": 0, "snapshot_restore": 0, "kv_compact": 0}
 _EXT = None
 
 
@@ -76,6 +79,28 @@ def partition_attention(q, k_cache, v_cache, positions, *, window=0,
     return out
 
 
+def paged_attention(q, k_pool, v_pool, tables, positions, *,
+                    logit_cap=0.0, scale=None):
+    """q (P, Hkv, G, Dh); k/v_pool (NB, BT, Hkv, Dh); tables (P, MB) int32
+    (-1 = unmapped); positions (P,) int32.  Returns (P, Hkv, G, Dh)."""
+    if q.device.type == "cpu":
+        return ref.paged_attention(q, k_pool, v_pool, tables, positions,
+                                   logit_cap=logit_cap, scale=scale)
+    out = _paged.paged_attention(load(), q, k_pool, v_pool, tables,
+                                 positions, logit_cap=logit_cap, scale=scale)
+    LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def _device_i32(values, dev) -> torch.Tensor:
+    """Host ints as an int32 tensor on ``dev``, staged through pinned
+    memory: the copy is queued on the stream and the host does not wait
+    for the stream's earlier work (the caching host allocator keeps the
+    staging buffer alive until the copy has run)."""
+    return torch.tensor(values, dtype=torch.int32).pin_memory().to(
+        dev, non_blocking=True)
+
+
 def _checked_rows(leaves, rows, layout) -> list[int]:
     """Row ids as Python ints, each in range of every leaf's batch axis
     (the kernels do not bound-check)."""
@@ -98,9 +123,8 @@ def snapshot_capture(leaves, rows, *, layout):
     dev = leaves[0].device
     if dev.type == "cpu":
         return ref.snapshot_capture(leaves, torch.tensor(rows), layout)
-    blob = _kvs.snapshot_capture(
-        load(), leaves,
-        torch.tensor(rows, dtype=torch.int32, device=dev), layout=layout)
+    blob = _kvs.snapshot_capture(load(), leaves, _device_i32(rows, dev),
+                                 layout=layout)
     LAUNCHES["snapshot_capture"] += 1
     return blob
 
@@ -114,8 +138,55 @@ def snapshot_restore(leaves, blob, rows, *, layout):
     if dev.type == "cpu":
         return tuple(ref.snapshot_restore(leaves, blob, torch.tensor(rows),
                                           layout))
-    _kvs.snapshot_restore(load(), leaves, blob,
-                          torch.tensor(rows, dtype=torch.int32, device=dev),
+    _kvs.snapshot_restore(load(), leaves, blob, _device_i32(rows, dev),
                           layout=layout)
     LAUNCHES["snapshot_restore"] += 1
     return leaves
+
+
+def _live_moves(src, dst, count, nb: int) -> tuple[list[int], list[int]]:
+    """The live moves as Python ints: the first ``count`` (all when None),
+    less those whose ``dst`` lies at or past ``nb`` (dropped, as the JAX
+    oracle's ``mode="drop"``).  Raises where the kernel's parallel copies
+    could not give the oracle's gather-then-scatter result (two moves with
+    one ``dst``; a ``dst`` that is another move's ``src``) and on indices
+    the kernel does not bound-check."""
+    src, dst = [int(s) for s in src], [int(d) for d in dst]
+    if len(src) != len(dst):
+        raise ValueError(f"{len(src)} sources for {len(dst)} destinations")
+    n = len(src) if count is None else int(count)
+    live = [(s, d) for s, d in zip(src[:n], dst[:n]) if d < nb]
+    bad = [(s, d) for s, d in live if not 0 <= s < nb or d < 0]
+    if bad:
+        raise IndexError(f"moves {bad} out of range for {nb} blocks")
+    dsts = [d for _, d in live]
+    if len(set(dsts)) != len(dsts):
+        raise ValueError("two live moves write the same block")
+    readers: dict[int, set[int]] = {}
+    for i, (s, _) in enumerate(live):
+        readers.setdefault(s, set()).add(i)
+    clash = [d for i, (_, d) in enumerate(live) if readers.get(d, set()) - {i}]
+    if clash:
+        raise ValueError(f"blocks {clash} are written by one live move and "
+                         f"read by another")
+    return [s for s, _ in live], dsts
+
+
+def kv_compact(pools, src, dst, count=None):
+    """Migration pass over every pool leaf, in place:
+    ``pool[dst[i]] = pool[src[i]]`` for the live moves (see ``_live_moves``;
+    ``src``/``dst`` are sequences of ints, ``count`` the live prefix).  One
+    launch for all leaves on the card; none when no move is live.  Returns
+    the pools."""
+    pools = tuple(pools)
+    s, d = _live_moves(src, dst, count, pools[0].shape[0])
+    if not s:
+        return pools
+    if pools[0].device.type == "cpu":
+        si, di = torch.tensor(s), torch.tensor(d)
+        for pool in pools:
+            ref.kv_compact(pool, si, di, len(s))
+        return pools
+    _kvc.kv_compact(load(), pools, _device_i32([s, d], pools[0].device))
+    LAUNCHES["kv_compact"] += 1
+    return pools

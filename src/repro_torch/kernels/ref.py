@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels: the CPU path of every
 wrapper in ``ops`` and the oracle each CUDA kernel is held against on the
 card.  They follow ``repro.kernels.ref`` line by line, except that
-``snapshot_restore`` writes in place (the kernel aliases the leaves the way
-the Pallas kernel's ``input_output_aliases`` does)."""
+``snapshot_restore`` and ``kv_compact`` write in place (the kernels alias
+their operands the way the Pallas kernels' ``input_output_aliases`` do)."""
 from __future__ import annotations
 
 import torch
@@ -38,6 +38,51 @@ def partition_attention(q, k_cache, v_cache, positions, *, window: int = 0,
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype), v_cache)
+
+
+def paged_attention(q, k_pool, v_pool, tables, positions, *,
+                    logit_cap: float = 0.0, scale: float | None = None):
+    """Decode attention over the vanilla paged layout.
+
+    q: (P, Hkv, G, Dh); k/v_pool: (NB, BT, Hkv, Dh);
+    tables: (P, MB) int32 block ids (-1 = unmapped);
+    positions: (P,) current token position (token i lives in logical block
+    i // BT at offset i % BT — linear fill, no ring).
+    An unmapped slot gathers block 0 and is masked, as in the JAX oracle;
+    the kernel skips it.  The two differ only for a row with no valid
+    token.  Returns (P, Hkv, G, Dh) in the dtype of ``v_pool``.
+    """
+    bt = k_pool.shape[1]
+    p, mb = tables.shape
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    idx = tables.long().clamp(min=0)
+    sh = (p, mb * bt) + tuple(k_pool.shape[2:])
+    k_rows = k_pool[idx].reshape(sh)                # (P, MB*BT, Hkv, Dh)
+    v_rows = v_pool[idx].reshape(sh)
+    tok = torch.arange(mb * bt, dtype=torch.int64, device=q.device)[None, :]
+    valid = (tok <= positions.long()[:, None]) & \
+        (tables.repeat_interleave(bt, dim=1) >= 0)
+    s = torch.einsum("bkgd,btkd->bkgt", q.to(f32), k_rows.to(f32)) * scale
+    s = _softcap(s, logit_cap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", w.to(v_rows.dtype), v_rows)
+
+
+def kv_compact(pool, src, dst, count):
+    """Migration, in place: ``pool[dst[i]] = pool[src[i]]`` for the live
+    moves ``i < count``.  A move whose ``dst`` lies at or past NB is dropped
+    (the JAX oracle's ``mode="drop"``, which the engine's padding with
+    ``dst = NB`` relies on).  Every source block is gathered before any
+    write, as in the JAX oracle.  ``src``/``dst`` are int tensors on the
+    pool's device.  Returns ``pool``."""
+    src, dst = src.long(), dst.long()
+    live = (torch.arange(src.shape[0], device=src.device) < count) \
+        & (dst < pool.shape[0])
+    blocks = pool.index_select(0, src[live])
+    pool.index_copy_(0, dst[live], blocks)
+    return pool
 
 
 def snapshot_capture(leaves, rows, layout):

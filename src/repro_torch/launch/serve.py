@@ -1,7 +1,8 @@
 """Serving launcher: trace-driven elastic serving on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \
-      --mode hotmem --duration 20 --rate 1.0 [--reduced] [--device cpu]
+      --mode {hotmem,vanilla,static} --duration 20 --rate 1.0 [--reduced] \
+      [--device cpu]
 
 Port of ``repro.launch.serve``: runs the ServeEngine against a bursty
 synthetic trace and prints the reclaim/latency metrics the paper's
@@ -45,7 +46,8 @@ def serve(arch: str, *, mode: str = "hotmem", duration: float = 20.0,
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--mode", default="hotmem", choices=["hotmem", "static"])
+    ap.add_argument("--mode", default="hotmem",
+                    choices=["hotmem", "vanilla", "static"])
     ap.add_argument("--duration", type=float, default=20.0)
     ap.add_argument("--rate", type=float, default=1.0)
     ap.add_argument("--partitions", type=int, default=8)

@@ -1,7 +1,6 @@
 """Elastic serving engine: the FaaS-runtime analogue of paper §4.1.
 
-Port of ``repro.serving.engine`` for the hotmem and static modes (the
-vanilla paged baseline comes with the port's next slice and raises here).
+Port of ``repro.serving.engine``: the hotmem, vanilla and static modes.
 
 One engine = one replica (VM).  Requests (function invocations) are admitted
 into arena partitions, prefilled (cold start), batch-decoded (continuous
@@ -29,8 +28,11 @@ the path is the hand-written one (``repro_torch.kernels.ops``), built and
 loaded when the engine is made, outside every timed region; on the CPU the
 same wrappers run their plain versions.
 
-Modes (paper Fig. 8/10):
+Modes (paper Fig. 8/9/10):
   hotmem  — partition arena; shrink is metadata + prefix slice.
+  vanilla — same compute, but a physical paged twin of the KV leaves is
+            maintained (owned by the arena); shrink must first run real
+            migration copies (one ``kv_compact`` launch on the card).
   static  — statically over-provisioned (never resizes).
 """
 from __future__ import annotations
@@ -142,8 +144,7 @@ class StepEvent:
 class ServeEngine:
     """One replica.  The constructor is the JAX engine's without
     ``snapshot_impl``: the device of ``params`` picks the kernels.
-    ``seed`` is kept for that signature; only the vanilla mode (not ported
-    yet) draws from it."""
+    ``seed`` seeds the vanilla manager's block hand-out order."""
 
     def __init__(self, cfg: ModelConfig, params, spec: ArenaSpec, *,
                  mode: str = "hotmem", keep_alive: float = 10.0,
@@ -151,10 +152,11 @@ class ServeEngine:
                  broker: Optional[MemoryBroker] = None,
                  replica_id: str = "r0",
                  snapshot_page_bytes: Optional[int] = None):
-        if mode not in ("hotmem", "static"):
-            raise NotImplementedError(
-                f"engine mode {mode!r} is not ported yet (hotmem, static)")
+        assert mode in ("hotmem", "vanilla", "static")
         assert snapshot_page_bytes is None or snapshot_page_bytes > 0
+        if mode == "vanilla":
+            assert cfg.family not in ("ssm", "hybrid"), \
+                "paged baseline mirrors token-extensive KV only"
         self.cfg = cfg
         self.params = params
         self.spec = spec
@@ -167,15 +169,28 @@ class ServeEngine:
         self.ladder = bucket_ladder(spec.n_partitions,
                                     min_units=min(2, spec.n_partitions))
         start = spec.n_partitions if mode == "static" else self.ladder[0]
-        self.caches = M.init_caches(cfg, start, spec.partition_tokens,
+        # vanilla's model-facing row view stays full-size (compute reads
+        # through block tables conceptually); its *physical* pool resizes
+        rows = spec.n_partitions if mode in ("static", "vanilla") else start
+        self.caches = M.init_caches(cfg, rows, spec.partition_tokens,
                                     device=self.device)
-        # the arena is metadata-only; the engine owns the device tree
-        self.arena = ElasticArena(cfg, spec, mode, grant=self._host_grant,
-                                  release=self._host_release)
-        # managers sized in partitions; ladder starts small
-        self.arena.manager.plugged = start
-        self.arena.manager._free = list(range(start))
-        heapq.heapify(self.arena.manager._free)
+        # physical paged twin of token-extensive KV leaves (vanilla only),
+        # owned by the arena (``pool``); for hotmem/static the arena is
+        # metadata-only and the engine owns the device tree
+        self.arena = ElasticArena(
+            cfg, spec, mode,
+            caches=self._make_pool(start) if mode == "vanilla" else None,
+            seed=seed, grant=self._host_grant, release=self._host_release)
+        if mode != "vanilla":
+            # managers sized in partitions; ladder starts small
+            self.arena.manager.plugged = start
+            self.arena.manager._free = list(range(start))
+            heapq.heapify(self.arena.manager._free)
+        else:
+            bpp = spec.blocks_per_partition
+            self.arena.manager.pool_blocks = start * bpp
+            self.arena.manager._free = list(range(start * bpp))
+            self.arena.manager._rng.shuffle(self.arena.manager._free)
 
         # host control plane: growth is a *request* to the broker, never a
         # unilateral resize.  Standalone engines get an unmetered broker.
@@ -194,6 +209,9 @@ class ServeEngine:
             assert spec.blocks_per_partition % self._n_dev == 0, \
                 f"partition of {spec.blocks_per_partition} blocks does " \
                 f"not stripe over {self._n_dev} devices"
+            # vanilla plugs/unplugs single blocks, which cannot stripe
+            assert mode != "vanilla", \
+                "vanilla mode is incompatible with a sharded host"
         self.broker.register(
             replica_id, start * spec.blocks_per_partition,
             reclaim=self.reclaim_for_broker, load=self.load, mode=mode,
@@ -223,7 +241,7 @@ class ServeEngine:
         # reassembles its row from these slices — zero h2d payload bytes.
         self._device_pages: dict[str, tuple] = {}
         self._row_req: dict[int, Request] = {}
-        if prewarm and mode == "hotmem":
+        if prewarm and mode in ("hotmem", "vanilla"):
             self._warm_decode()
 
     def _warm_decode(self) -> None:
@@ -238,12 +256,14 @@ class ServeEngine:
 
     # ------------------------------------------------------------ plumbing
     def _host_grant(self, native: int) -> int:
-        """Arena host gate: convert partitions to broker blocks, request a
-        grant, and floor the immediate portion back to partitions.  A sync
+        """Arena host gate: convert this replica's native units (partitions
+        for hotmem, blocks for vanilla) to broker blocks, request a grant,
+        and floor the immediate portion back to native granularity.  A sync
         broker may steal inline (its stall is charged to our clock); an
         async broker leaves the deficit pending on the grant instead."""
         bpp = self.spec.blocks_per_partition
-        g = self.broker.request_grant(self.replica_id, native * bpp)
+        want = native if self.mode == "vanilla" else native * bpp
+        g = self.broker.request_grant(self.replica_id, want)
         if g.stall_seconds:
             self.now += g.stall_seconds
             self.events.append(StepEvent(self.now, "stall", g.stall_seconds,
@@ -251,6 +271,8 @@ class ServeEngine:
         if not g.done:
             self._open_grants.append(g)
         got = g.granted
+        if self.mode == "vanilla":
+            return got
         rem = got % bpp
         if rem:                           # sub-partition remainder: no use
             self.broker.release_units(self.replica_id, rem)
@@ -262,11 +284,49 @@ class ServeEngine:
         self._reclaim_orders.append(order)
 
     def _host_release(self, native: int) -> None:
-        self.broker.release_units(self.replica_id,
-                                  native * self.spec.blocks_per_partition)
+        self.broker.release_units(
+            self.replica_id,
+            native if self.mode == "vanilla" else
+            native * self.spec.blocks_per_partition)
+
+    def _make_pool(self, parts: int):
+        """Physical paged twin: every token-extensive leaf becomes a flat
+        (NB, block_tokens, ...) block pool — one manager block id maps to
+        the same token range across all layers, the paper's whole-memory-
+        block semantics.  Non-token leaves are skipped.  Each pool leaf is
+        contiguous storage of its own: the moved and reshaped row cache is
+        a strided view of it, which the in-place migration must not
+        write."""
+        bt = self.spec.block_tokens
+        t_part = self.spec.partition_tokens
+        pools = []
+
+        def to_pool(x, ax):
+            tok_ax = ax + 1
+            if x.dim() <= tok_ax or x.shape[tok_ax] != t_part:
+                return
+            if ax == 1:                       # (G, B, T, ...) -> (B, T, G...)
+                x = x.movedim(0, 2)[:parts]
+            else:
+                x = x[:parts]
+            nb = parts * (t_part // bt)
+            pools.append(x.reshape((nb, bt) + tuple(x.shape[2:])).clone(
+                memory_format=torch.contiguous_format))
+
+        M.cache_axis_map(self.caches, to_pool)
+        return pools or None
+
+    @property
+    def pool(self):
+        """The vanilla block pool (the arena's tensors), else None."""
+        return self.arena.caches
 
     def _rows(self) -> int:
         return M.cache_num_rows(self.caches)
+
+    def _units(self) -> int:
+        return self.arena.units() if self.mode != "vanilla" else \
+            self.arena.units() // self.spec.blocks_per_partition
 
     def _sync(self) -> None:
         sync(self.caches)
@@ -292,7 +352,11 @@ class ServeEngine:
                 _, old_rid, row = warm.pop()
                 self._start_warm(req, old_rid, row)
                 continue
-            row = self.arena.admit(req.rid)
+            got = self.arena.admit(req.rid)
+            if got is None:
+                still.append(req)
+                continue
+            row = got if self.mode != "vanilla" else self._alloc_row(req)
             if row is None:
                 still.append(req)
                 continue
@@ -306,6 +370,15 @@ class ServeEngine:
             else:
                 self._start_cold(req, row)
         self.pending = still
+
+    def _alloc_row(self, req) -> Optional[int]:
+        used = set(self._row_req)
+        for entries in self.warm.values():          # warm rows stay reserved
+            used.update(row for _, _, row in entries)
+        for r in range(self._rows()):
+            if r not in used:
+                return r
+        return None
 
     def _activate(self, req: Request, row: int) -> None:
         """Shared tail of every start path (cold / warm / restore): the
@@ -574,7 +647,7 @@ class ServeEngine:
         demand = len(self.active) + sum(map(len, self.warm.values())) \
             + len(self.pending) + self.headroom
         tgt = target_bucket(self.ladder, max(demand, self.ladder[0]))
-        cur = self.arena.units()
+        cur = self._units()
         if tgt > cur:
             if self._reclaim_orders:
                 # the host ordered this VM to shrink; plugging now would
@@ -587,25 +660,30 @@ class ServeEngine:
             k = tgt - cur - owed
             if k <= 0:
                 return
-            self._grow_and_sync(k, via_gate=True)
+            units = k if self.mode != "vanilla" else \
+                k * self.spec.blocks_per_partition
+            self._grow_and_sync(units, via_gate=True)
         elif tgt < cur:
             k = cur - tgt
-            if not self.arena.manager.shrink_plan(k):
+            if self.mode == "hotmem" and \
+                    not self.arena.manager.shrink_plan(k):
                 return                       # nothing reclaimable yet
-            self._unplug_now(k)
+            units = k if self.mode != "vanilla" else \
+                k * self.spec.blocks_per_partition
+            self._unplug_now(units)
 
     def _grow_and_sync(self, native: int, *, via_gate: bool,
                        detail: Optional[dict] = None) -> int:
         """Grow the arena (through the host gate, or absorbing an
         already-claimed grant fill) + row sync + virtual-clock charge +
-        event log.  Returns partitions actually added."""
+        event log.  Returns native units actually added."""
         before = self.arena.units()
         wall = self.arena.plug(native) if via_gate \
             else self.arena.absorb(native)
         added = self.arena.units() - before
         if added:
             t0 = time.perf_counter()
-            self._sync_rows(self.arena.units())
+            self._sync_rows(self._units())
             self._sync()
             wall += time.perf_counter() - t0
             self.now += wall
@@ -620,7 +698,7 @@ class ServeEngine:
         own host accounting, hence ``notify_host=False``)."""
         ev = self.arena.unplug(units, notify_host=not stolen)
         t0 = time.perf_counter()
-        self._sync_rows(self.arena.units())
+        self._sync_rows(self._units())
         self._sync()
         ev.wall_seconds += time.perf_counter() - t0
         self.now += ev.wall_seconds
@@ -635,7 +713,10 @@ class ServeEngine:
     def _sync_rows(self, parts: int) -> None:
         """Match the model-facing row cache to the arena partition count.
         Both directions copy into fresh storage, so a shrink frees the
-        dropped rows' device memory."""
+        dropped rows' device memory.  Vanilla's row view stays full-size
+        (its pool resizes in the arena)."""
+        if self.mode == "vanilla":
+            return
         rows = self._rows()
         if parts == rows:
             return
@@ -648,6 +729,12 @@ class ServeEngine:
     def load(self) -> int:
         """In-flight + queued invocations (the broker's idleness signal)."""
         return len(self.active) + len(self.pending)
+
+    def _free_units(self) -> int:
+        if self.mode == "vanilla":
+            return self.arena.manager.free_blocks \
+                // self.spec.blocks_per_partition
+        return self.arena.manager.free_partitions
 
     def _evict_warm_suffix(self, k_parts: int) -> None:
         """HotMem shrink drops only a *free suffix* of the arena: extend
@@ -727,9 +814,10 @@ class ServeEngine:
         for g in list(self._open_grants):
             got = self.broker.claim_grant(g)
             if got:
-                if got % bpp:
+                if self.mode != "vanilla" and got % bpp:
                     self.broker.release_units(self.replica_id, got % bpp)
-                self._grow_and_sync(got // bpp, via_gate=False,
+                native = got if self.mode == "vanilla" else got // bpp
+                self._grow_and_sync(native, via_gate=False,
                                     detail={"async_fill": True})
             if abandon and not g.done:
                 self.broker.abandon_grant(g)
@@ -740,17 +828,36 @@ class ServeEngine:
     def reclaim_for_broker(self, k_blocks: int
                            ) -> tuple[int, Optional[ReclaimEvent]]:
         """Victim side of a host steal: the broker needs ``k_blocks`` back.
-        Recycle the idle warm containers blocking the free suffix, then
-        unplug (metadata-only).  Returns (blocks actually freed, event)."""
+        Recycle idle warm containers (hotmem: the ones blocking the free
+        suffix; vanilla: oldest-first until enough blocks are free), then
+        unplug — charging this replica's clock with the reclaim stall
+        (hotmem: metadata-only; vanilla: migration copies).  Returns
+        (blocks actually freed, event)."""
         if self.mode == "static":
             return 0, None
         bpp = self.spec.blocks_per_partition
         k_parts = -(-k_blocks // bpp)
-        self._evict_warm_suffix(k_parts)
-        if not self.arena.manager.shrink_plan(k_parts):
-            return 0, None
-        ev = self._unplug_now(k_parts, stolen=True)
-        return ev.reclaimed_units * bpp, ev
+        if self.mode == "hotmem":
+            self._evict_warm_suffix(k_parts)
+            if not self.arena.manager.shrink_plan(k_parts):
+                return 0, None
+            units = k_parts
+        else:
+            entries = sorted((t, prof, rid, row)
+                             for prof, es in self.warm.items()
+                             for (t, rid, row) in es)
+            for t, prof, rid, row in entries:
+                if self._free_units() >= k_parts:
+                    break
+                self.arena.finish(rid)
+                self.warm[prof].remove((t, rid, row))
+            units = k_parts * bpp
+            if self.arena.manager.shrink_plan(units)[0] == 0:
+                return 0, None        # nothing reclaimable: skip the
+                #                       zero-yield migration pass entirely
+        ev = self._unplug_now(units, stolen=True)
+        return (ev.reclaimed_units *
+                (1 if self.mode == "vanilla" else bpp)), ev
 
     # ----------------------------------------------------------------- run
     def _tick(self, todo: deque) -> None:

@@ -69,7 +69,7 @@ def _pooled(setup, **kw):
 # ------------------------------------------ tests/test_serving.py outcomes
 
 
-@pytest.mark.parametrize("mode", ["hotmem", "static"])
+@pytest.mark.parametrize("mode", ["hotmem", "vanilla", "static"])
 def test_trace_completes(setup, mode):
     cfg, params, spec = setup
     reqs = [Request(rid=f"{mode}{i}", profile=p, submit_s=t)
@@ -78,9 +78,10 @@ def test_trace_completes(setup, mode):
     m = eng.run(reqs, max_virtual_s=2000)
     assert m["completed"] == len(reqs)
     assert m["killed"] == 0
-    assert m["migrated_bytes"] == 0              # C1: zero migration
+    if mode != "vanilla":
+        assert m["migrated_bytes"] == 0          # C1: zero migration
     eng.arena.manager.check_invariants()
-    if mode == "hotmem":
+    if mode != "static":
         assert m["reclaimed_bytes"] > 0          # elasticity engaged
         assert {"plug", "unplug"} <= {e.kind for e in eng.events}
     else:
@@ -116,12 +117,6 @@ def test_waitqueue_admission(setup):
     eng = ServeEngine(cfg, params, tiny, mode="static", keep_alive=0.0)
     m = eng.run(reqs, max_virtual_s=2000)
     assert m["completed"] == 5
-
-
-def test_vanilla_mode_not_ported(setup):
-    cfg, params, spec = setup
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params, spec, mode="vanilla")
 
 
 # ------------------------------------------------------ unplug frees rows
@@ -310,9 +305,11 @@ def test_staged_row_carves_zero_copy_views(setup):
         blob_to_row_tree(sr.blob, treedef, metas))) == sr.nbytes
 
 
-def test_serve_launcher_runs_on_cpu():
+@pytest.mark.parametrize("mode", ["hotmem", "vanilla"])
+def test_serve_launcher_runs_on_cpu(mode):
     from repro_torch.launch.serve import serve
-    eng, m = serve("qwen2-7b", duration=4.0, rate=1.0, device="cpu")
+    eng, m = serve("qwen2-7b", mode=mode, duration=4.0, rate=1.0,
+                   device="cpu")
     assert m["completed"] == len(eng.done) > 0 and m["killed"] == 0
 
 
@@ -332,5 +329,18 @@ def test_elastic_arena_resizes_a_cache_tree_in_fresh_storage(setup):
     ev = arena.unplug(2)
     assert ev.reclaimed_units == 2 and arena.caches["k"].shape[0] == 3
     assert arena.caches["k"].untyped_storage().data_ptr() != old
-    with pytest.raises(NotImplementedError):
-        ElasticArena(cfg, spec, "vanilla")
+    # the vanilla arena's leading axis is the block pool: a shrink keeps
+    # the block prefix in fresh storage after moving live tail blocks
+    pool = {"k": torch.arange(spec.n_blocks, dtype=torch.float32)[:, None]
+            .repeat(1, 3)}
+    va = ElasticArena(cfg, spec, "vanilla", caches=pool, seed=0)
+    assert va.units() == spec.n_blocks
+    va.admit("r")
+    va.on_tokens("r", spec.partition_tokens)
+    was = list(va.manager.block_table("r"))        # block k holds value k
+    bpp = spec.blocks_per_partition
+    ev = va.unplug(spec.n_blocks - bpp)
+    assert va.units() == bpp and va.caches["k"].shape[0] == bpp
+    assert ev.migrated_blocks == sum(b >= bpp for b in was) > 0
+    now = va.manager.block_table("r")
+    assert [int(va.caches["k"][b, 0]) for b in now] == was

@@ -24,7 +24,8 @@ VERBATIM = ["configs/base.py"] + [
         "dbrx_132b", "gemma2_9b", "mamba2_780m", "mixtral_8x7b",
         "qwen2_1_5b", "qwen2_7b", "qwen2_vl_72b", "recurrentgemma_2b",
         "seamless_m4t_medium", "tinyllama_1_1b")] + [
-    "core/hotmem.py", "serving/request.py", "serving/tracegen.py",
+    "core/hotmem.py", "core/vanilla.py", "serving/request.py",
+    "serving/tracegen.py",
     "cluster/topology.py", "cluster/ledger.py", "cluster/snapshots.py",
     "cluster/host.py"]
 
@@ -76,7 +77,9 @@ def test_verbatim_copy_equals_its_source(rel):
 
 @pytest.mark.parametrize("rel", ["kernels/ops.py",
                                  "kernels/partition_attention.py",
-                                 "kernels/kv_snapshot.py"])
+                                 "kernels/paged_attention.py",
+                                 "kernels/kv_snapshot.py",
+                                 "kernels/kv_compact.py"])
 def test_no_except_around_a_kernel_launch(rel):
     tree = ast.parse((PORT / rel).read_text())
     handlers = [n.lineno for n in ast.walk(tree)
