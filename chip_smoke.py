@@ -25,6 +25,7 @@ import subprocess
 import sys
 import time
 from collections import deque
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -187,6 +188,42 @@ def phase_attention(cfg, gen) -> dict:
     check(ok, f"partition_attention f32 ragged within {TOL_F32}: {err}")
     errs["f32_ragged"] = err
 
+    # the split-K design's edge cases: P = 1; valid lengths under one
+    # 32-slot tile, of exactly one, and not a multiple of the split; windows
+    # shorter than a tile and than a split; rings wrapped far past T; and
+    # pos = -1, every slot masked, against the mean of V over all T slots
+    edge = torch.tensor([5, 31, 32, 1001, 2047, 10 * t + 123, 1_000_003, -1],
+                        dtype=torch.int32, device=DEV)
+    edge_cases = [("p1", 1, lo, {}), ("p1_ring", 1, ring, {}),
+                  ("edge_lengths", p, edge, {}),
+                  ("edge_window_7", p, edge, {"window": 7}),
+                  ("edge_window_100", p, edge, {"window": 100})]
+    for name, rows, pos, kw in edge_cases:
+        got = ops.partition_attention(q[:rows], k[:rows], v[:rows],
+                                      pos[:rows], **kw)
+        ok, err, limit = attention_close(
+            got, ref.partition_attention(q[:rows], k[:rows], v[:rows],
+                                         pos[:rows], **kw))
+        check(ok, f"partition_attention {name}: error {err} within "
+                  f"{TOL_BF16} and {limit}")
+        errs[name], limits[name] = err, limit
+        if pos is edge:
+            mean = v[p - 1].float().mean(0)[:, None].expand(hkv, g, dh)
+            ok, err, limit = attention_close(got[p - 1], mean)
+            check(ok, f"partition_attention {name}, pos -1: error {err} "
+                      f"from the mean of V within {limit}")
+            errs[name + "_pos-1_vs_mean_v"] = err
+    pos3 = torch.tensor([-1, 250, 31], dtype=torch.int32, device=DEV)
+    for w in (0, 7):
+        got = ops.partition_attention(q2, k2, v2, pos3, window=w)
+        ok, err = allclose(got, ref.partition_attention(q2, k2, v2, pos3,
+                                                        window=w), TOL_F32)
+        ok2, err2 = allclose(got[0], v2[0].mean(0)[:, None].expand(2, 9, 64),
+                             TOL_F32)
+        check(ok and ok2, f"partition_attention f32 G=9 Dh=64 edges, window "
+                          f"{w}, within {TOL_F32}: {err}, {err2}")
+        errs[f"f32_g9_dh64_edges_w{w}"] = max(err, err2)
+
     # yardstick: one SDPA call on the unrolled GQA (K/V repeated per query
     # head and the ring mask built beforehand, outside the timing)
     scale = dh ** -0.5
@@ -208,6 +245,22 @@ def phase_attention(cfg, gen) -> dict:
     bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
     kernel = lambda: ops.partition_attention(q, k, v, lo)  # noqa: E731
     plain = lambda: ref.partition_attention(q, k, v, lo)  # noqa: E731
+    # two more shapes, timed for the kernel line only: one row at its
+    # ring's end, and eight rows at the engine's positions (<= 256)
+    short = torch.randint(0, 257, (p,), generator=gen, device=DEV,
+                          dtype=torch.int32)
+    extra = []
+    for name, rows, pos in (
+            ("p1_pos2047", 1,
+             torch.tensor([t - 1], dtype=torch.int32, device=DEV)),
+            ("p8_pos_le_256", p, short)):
+        n_valid = _valid_slots(pos, t)
+        args = (q[:rows], k[:rows], v[:rows], pos)
+        extra.append(_timed_shape(
+            name, n_valid, partial(ops.partition_attention, *args),
+            partial(ref.partition_attention, *args),
+            2 * n_valid * hkv * dh * item + 2 * rows * hkv * g * dh * item
+            + 4 * rows, 4.0 * n_valid * hkv * g * dh))
     row = {"name": "partition_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
            "replaces": "src/repro/kernels/partition_attention.py:70",
@@ -220,8 +273,17 @@ def phase_attention(cfg, gen) -> dict:
           "valid_slots": valid, "bytes": nbytes, "flops": flops,
           "errors": errs, "tight_limits": limits,
           "planted_fault_errors": faults, "sdpa_max_abs_err": sdpa_err,
-          **row})
+          "more_shapes": extra, **row})
     return row
+
+
+def _timed_shape(name, valid, kernel, plain, nbytes, flops) -> dict:
+    """One more shape of an attention kernel: its time, its plain
+    version's and its bound, for the kernel's line."""
+    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+    return {"case": name, "valid_slots": valid, "ms": median_ms(kernel),
+            "plain_ms": median_ms(plain), "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by}
 
 
 def _linear_slots(pos: torch.Tensor, t: int) -> int:
@@ -303,6 +365,53 @@ def phase_paged_attention(cfg, gen) -> dict:
         check(ok, f"paged_attention {name} within {TOL_F32}: {e}")
         errs[name] = e
 
+    # the split-K design's edge cases: P = 1; lengths under one tile, of
+    # exactly one and not a multiple of the split, with -1 entries inside
+    # the valid range (held to the plain version, which masks them); then
+    # the rows with no valid token, held to the TPU kernel's results (the
+    # plain version differs there): no mapped entry at or before pos, or
+    # pos = -1, averages V over the table's mapped slots; no mapped entry
+    # at all gives zeros
+    edge = torch.tensor([5, 31, 32, 1001, 2047, 700, 300, 1500],
+                        dtype=torch.int32, device=DEV)
+    holes = tables.clone()
+    holes[3, 0] = holes[5, 10] = holes[6, 2] = holes[7, 40] = -1
+    for name, rows, tab, pos in (("p1", 1, tables, lo),
+                                 ("edge_lengths_holes", p, holes, edge)):
+        ok, e, lim = attention_close(
+            ops.paged_attention(q[:rows], kp, vp, tab[:rows], pos[:rows]),
+            ref.paged_attention(q[:rows], kp, vp, tab[:rows], pos[:rows]))
+        check(ok, f"paged_attention {name}: error {e} within {TOL_BF16} "
+                  f"and {lim}")
+        errs[name], limits[name] = e, lim
+    empty = tables.clone()
+    empty[0, :4] = -1                 # tokens 0..127 unmapped, pos 100
+    empty[1] = -1                     # nothing mapped
+    pos_e = lo.clone()
+    pos_e[0], pos_e[2] = 100, -1
+    got = ops.paged_attention(q, kp, vp, empty, pos_e)
+    want = ref.paged_attention(q, kp, vp, empty, pos_e)
+    for r, blocks in ((0, empty[0, 4:]), (2, empty[2])):
+        want[r] = vp[blocks.long()].float().reshape(-1, hkv, dh).mean(0)[
+            :, None].expand(hkv, g, dh).to(want.dtype)
+    want[1] = 0
+    ok, e, lim = attention_close(got, want)
+    check(ok and bool((got[1] == 0).all()),
+          f"paged_attention rows with no valid token: error {e} within "
+          f"{TOL_BF16} and {lim}, all-unmapped row zero")
+    errs["no_valid_token_rows"], limits["no_valid_token_rows"] = e, lim
+    tab5 = torch.tensor([[3, -1, 11, -1, -1], [-1, -1, -1, -1, -1],
+                         [-1, 18, 6, -1, -1]], dtype=torch.int32, device=DEV)
+    pos5 = torch.tensor([3 * 24 - 5, 50, 10], dtype=torch.int32, device=DEV)
+    got = ops.paged_attention(q2, kp2, vp2, tab5, pos5)
+    want = ref.paged_attention(q2, kp2, vp2, tab5, pos5)
+    want[1] = 0
+    want[2] = vp2[[18, 6]].reshape(-1, 2, 64).mean(0)[:, None].expand(2, 9,
+                                                                       64)
+    ok, e = allclose(got, want, TOL_F32)
+    check(ok, f"paged_attention f32 G=9 Dh=64 edges within {TOL_F32}: {e}")
+    errs["f32_g9_dh64_edges"] = e
+
     valid = _linear_slots(lo, mb * bt)
     item = q.element_size()
     nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p \
@@ -314,6 +423,20 @@ def phase_paged_attention(cfg, gen) -> dict:
         q, kp, vp, tables, lo)
     partition = lambda: ops.partition_attention(q, k, v, lo)  # noqa: E731
     ms, partition_ms = median_ms(kernel), median_ms(partition)
+    short = torch.randint(0, 257, (p,), generator=gen, device=DEV,
+                          dtype=torch.int32)
+    extra = []
+    for name, rows, pos in (
+            ("p1_pos2047", 1,
+             torch.tensor([t - 1], dtype=torch.int32, device=DEV)),
+            ("p8_pos_le_256", p, short)):
+        n_valid = _linear_slots(pos, mb * bt)
+        args = (q[:rows], kp, vp, tables[:rows], pos)
+        extra.append(_timed_shape(
+            name, n_valid, partial(ops.paged_attention, *args),
+            partial(ref.paged_attention, *args),
+            2 * n_valid * hkv * dh * item + 2 * rows * hkv * g * dh * item
+            + 4 * rows + 4 * rows * mb, 4.0 * n_valid * hkv * g * dh))
     row = {"name": "paged_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "replaces": "src/repro/kernels/paged_attention.py:65",
@@ -327,7 +450,7 @@ def phase_paged_attention(cfg, gen) -> dict:
           "planted_fault_errors": faults,
           "library": "none: no single PyTorch call computes paged attention",
           "partition_ms": partition_ms, "gather_overhead": ms / partition_ms,
-          **row})
+          "more_shapes": extra, **row})
     return row
 
 

@@ -12,13 +12,14 @@
 
 int partition_attention(const void* q, const void* k, const void* v,
                         const void* positions, void* out, int p, int t,
-                        int hkv, int g, int dh, int is_bf16, float scale,
-                        float cap, int window, void* stream);
+                        int hkv, int g, int dh, int splits, int is_bf16,
+                        float scale, float cap, int window, void* stream);
 int partition_attention_prepare();
 int paged_attention(const void* q, const void* k, const void* v,
                     const void* tables, const void* positions, void* out,
                     int p, int nb, int bt, int mb, int hkv, int g, int dh,
-                    int is_bf16, float scale, float cap, void* stream);
+                    int splits, int is_bf16, float scale, float cap,
+                    void* stream);
 int paged_attention_prepare();
 int snapshot_copy(int capture, const void* const* ptrs,
                   const long long* desc, int n_leaves, void* blob,
@@ -36,29 +37,32 @@ void check(int err, const char* what) {
   TORCH_CHECK(err == 0, what, " failed: CUDA error ", err);
 }
 
-// q (P, Hkv, G, Dh), k/v (P, T, Hkv, Dh), out like q, positions (P,) int32
+// q (P, Hkv, G, Dh), k/v (P, T, Hkv, Dh), out like q, positions (P,) int32;
+// splits the slices of each row
 void attention(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, const torch::Tensor& positions,
-               const torch::Tensor& out, double scale, double cap,
-               int64_t window, int64_t stream) {
+               const torch::Tensor& out, int64_t splits, double scale,
+               double cap, int64_t window, int64_t stream) {
   check(partition_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
             out.data_ptr(), q.size(0), k.size(1), q.size(1), q.size(2),
-            q.size(3), q.scalar_type() == torch::kBFloat16, scale, cap,
-            window, reinterpret_cast<void*>(stream)),
+            q.size(3), splits,
+            q.scalar_type() == torch::kBFloat16, scale, cap, window,
+            reinterpret_cast<void*>(stream)),
         "partition_attention launch");
 }
 
 // q (P, Hkv, G, Dh), k/v_pool (NB, BT, Hkv, Dh), out like q,
-// tables (P, MB) and positions (P,) int32
+// tables (P, MB) and positions (P,) int32; splits as above
 void paged(const torch::Tensor& q, const torch::Tensor& k,
            const torch::Tensor& v, const torch::Tensor& tables,
            const torch::Tensor& positions, const torch::Tensor& out,
-           double scale, double cap, int64_t stream) {
+           int64_t splits, double scale, double cap, int64_t stream) {
   check(paged_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(),
             positions.data_ptr(), out.data_ptr(), q.size(0), k.size(0),
             k.size(1), tables.size(1), q.size(1), q.size(2), q.size(3),
+            splits,
             q.scalar_type() == torch::kBFloat16, scale, cap,
             reinterpret_cast<void*>(stream)),
         "paged_attention launch");

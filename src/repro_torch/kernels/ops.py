@@ -8,9 +8,19 @@ wrapper adds one to its entry of ``LAUNCHES`` where it launches its kernel,
 and nowhere else, so a run can show that it went through the kernels.
 
 Kernels are built at first use by ``torch.utils.cpp_extension.load`` from
-``csrc/`` (the four CUDA sources, for ``sm_90a``, and ``binding.cpp``, the
-one file that includes torch's headers) into ``build/torch_kernels/`` at the
-repository root; ``load`` rebuilds when a source or flag changes.
+``csrc/`` (the four CUDA sources, for ``sm_90a``, the header
+``decode_attention.cuh`` that the two attention sources share, and
+``binding.cpp``, the one file that includes torch's headers) into
+``build/torch_kernels/`` at the repository root; ``load`` rebuilds when a
+source or flag changes.
+
+The two decode-attention kernels are one split-K design
+(``csrc/decode_attention.cuh``): each row's valid range is cut into slices
+over the SMs (``partition_attention.num_splits``, from the shapes alone),
+K/V tiles stream through a ``cp.async`` pipeline, bf16 scores and P.V run
+on the tensor cores (``mma.sync``), and the blocks of each row group, one
+thread-block cluster, merge their f32 partials through distributed shared
+memory.  One wrapper call is one launch and one count in ``LAUNCHES``.
 """
 from __future__ import annotations
 

@@ -7,11 +7,15 @@ tokens are (linear fill, no ring); the kernel chases the table, skipping
 ``-1`` entries.  Same online-softmax math as ``partition_attention``: the
 layout indirection is the only difference, the HotMem-vs-vanilla contrast
 at kernel level.  ``ops.paged_attention`` picks this kernel for CUDA
-tensors and ``ref.paged_attention`` for CPU tensors.
+tensors and ``ref.paged_attention`` for CPU tensors.  The split count is
+``partition_attention``'s, over each row's linear range of MB * BT tokens.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.partition_attention import (check_head_dim,
+                                                     splits_for)
 
 
 def paged_attention(ext, q, k_pool, v_pool, tables, positions, *,
@@ -39,8 +43,7 @@ def paged_attention(ext, q, k_pool, v_pool, tables, positions, *,
         raise ValueError("q and the pools must share one dtype, bf16 or f32")
     if tables.dtype != torch.int32 or positions.dtype != torch.int32:
         raise ValueError("tables and positions must be int32")
-    if dh % 8 or dh > 256:
-        raise ValueError(f"head_dim {dh} must be a multiple of 8, <= 256")
+    check_head_dim(dh)
     for x in (q, k_pool, v_pool, tables, positions):
         if x.device != dev or not x.is_contiguous():
             raise ValueError("every input must be contiguous on q's device")
@@ -50,8 +53,13 @@ def paged_attention(ext, q, k_pool, v_pool, tables, positions, *,
     if scale is None:
         scale = dh ** -0.5
     out = torch.empty_like(q)
+    mb = tables.shape[1]
+    if mb * bt >= 2 ** 31:
+        raise ValueError(f"tables of {mb} blocks of {bt} tokens exceed "
+                         f"int32 token indices")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ext.paged_attention(q, k_pool, v_pool, tables, positions, out,
-                            float(scale), float(logit_cap), stream)
+                            splits_for(q, mb * bt), float(scale),
+                            float(logit_cap), stream)
     return out

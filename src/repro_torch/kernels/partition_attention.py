@@ -1,5 +1,6 @@
 """Decode attention over contiguous HotMem partitions: launch of the CUDA
-kernel in ``csrc/partition_attention.cu``.
+kernel in ``csrc/partition_attention.cu``, and the host side of the split-K
+design it shares with ``paged_attention`` (``csrc/decode_attention.cuh``).
 
 Port of the Pallas kernel ``repro.kernels.partition_attention``: each
 request's KV lives contiguously in its partition row, so the kernel streams
@@ -8,10 +9,66 @@ vanilla slice's ``paged_attention``).  Online softmax in f32 over the
 tiles; ring-cache masking for windowed layers; optional tanh logit cap.
 ``ops.partition_attention`` picks this kernel for CUDA tensors and
 ``ref.partition_attention`` for CPU tensors.
+
+Each row's valid range is cut into ``num_splits`` slices, one block each,
+and the blocks of one (row, KV head, query block) form one thread-block
+cluster that merges their f32 partials through distributed shared memory:
+one launch a call, no workspace.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+ROWS_PER_BLOCK = 16    # query heads of one block (the mma's 16 rows)
+SPLIT_ALIGN = 16       # a slice's length is a multiple of this many tokens
+BLOCKS_PER_SM = 3      # blocks one SM holds (bf16, Dh = 128: 57 KB each)
+MAX_SPLITS = 16        # csrc/decode_attention.cuh::kMaxSplits (a cluster)
+MAX_BLOCKS = 2 ** 31 - 1
+
+
+def num_splits(rows: int, hkv: int, g: int, n_max: int, sms: int) -> int:
+    """Slices each row's range is cut into, from the shapes alone (never
+    the positions, so the host does not wait for the card): as many as fill
+    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs in one wave, at most
+    one per ``SPLIT_ALIGN`` tokens of the longest range ``n_max`` (T, or
+    MB * BT), at most ``MAX_SPLITS`` (one cluster): 12 at P = 8, Hkv = 4
+    and 16 at P = 1 on 132 SMs (``launch/attention_sweep.py`` times the
+    alternatives).  The kernel may use fewer where the card cannot hold a
+    cluster of this many blocks."""
+    groups = rows * hkv * -(-g // ROWS_PER_BLOCK)
+    s = max(1, BLOCKS_PER_SM * sms // groups)
+    return max(1, min(s, -(-n_max // SPLIT_ALIGN), MAX_SPLITS))
+
+
+def split_bounds(n: int, splits: int) -> list[tuple[int, int]]:
+    """The token slices ``[j0, j1)`` of a range of ``n`` tokens, one per
+    split, as the kernel cuts them (``split_slice`` in
+    ``csrc/decode_attention.cuh``); a slice may be empty."""
+    length = -(-(-(-n // splits)) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return [(min(s * length, n), min((s + 1) * length, n))
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(q, n_max: int) -> int:
+    """``num_splits`` for a call on ``q`` (P, Hkv, G, Dh) on its device."""
+    p, hkv, g, _dh = q.shape
+    splits = num_splits(p, hkv, g, n_max, _sm_count(q.device.index))
+    if p * hkv * -(-g // ROWS_PER_BLOCK) * splits > MAX_BLOCKS:
+        raise ValueError("the grid exceeds CUDA's limit of 2**31 - 1 blocks")
+    return splits
+
+
+def check_head_dim(dh: int) -> None:
+    if dh % 16 or not 16 <= dh <= 256:
+        raise ValueError(f"head_dim {dh} must be a multiple of 16 in "
+                         f"[16, 256] (the mma's depth)")
 
 
 def partition_attention(ext, q, k_cache, v_cache, positions, *,
@@ -37,8 +94,9 @@ def partition_attention(ext, q, k_cache, v_cache, positions, *,
         raise ValueError("q, k and v must share one dtype, bf16 or f32")
     if positions.dtype != torch.int32:
         raise ValueError("positions must be int32")
-    if dh % 8 or dh > 256:
-        raise ValueError(f"head_dim {dh} must be a multiple of 8, <= 256")
+    check_head_dim(dh)
+    if window < 0:
+        raise ValueError(f"window {window} must be >= 0")
     for x in (q, k_cache, v_cache, positions):
         if x.device != dev or not x.is_contiguous():
             raise ValueError("every input must be contiguous on q's device")
@@ -51,6 +109,6 @@ def partition_attention(ext, q, k_cache, v_cache, positions, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ext.partition_attention(q, k_cache, v_cache, positions, out,
-                                float(scale), float(logit_cap), int(window),
-                                stream)
+                                splits_for(q, t), float(scale),
+                                float(logit_cap), int(window), stream)
     return out

@@ -94,13 +94,42 @@ def test_partition_attention_plain_vs_pallas_interpret():
 
 
 def test_partition_attention_all_masked_row_stays_finite():
-    """A window that masks every slot (NEG_INF, not -inf) averages V."""
-    q, k, v, _pos, _tol = _attn_inputs((1, 16, 1, 2, 16), "f32", 4)
+    """A window of 1 at pos 40 in a ring of 16 leaves one valid slot (slot
+    8, gidx 40): the output is that slot's V row, finite, in the Pallas
+    kernel and the plain version alike."""
+    q, k, v, _pos, tol = _attn_inputs((1, 16, 1, 2, 16), "f32", 4)
     pos = (jnp.asarray([40], jnp.int32), torch.tensor([40],
                                                       dtype=torch.int32))
     got = ref.partition_attention(q[1], k[1], v[1], pos[1], window=1,
                                   logit_cap=0.0)
     assert torch.isfinite(got).all()
+    want = np.broadcast_to(np.asarray(v[0])[0, 8, 0], (2, 16))
+    _close(got[0, 0], want, tol)
+    pallas = pallas_partition_attention(q[0], k[0], v[0], pos[0], window=1,
+                                        block_t=8, interpret=True)
+    np.testing.assert_allclose(np.asarray(pallas, np.float32)[0, 0], want,
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_partition_attention_no_valid_slot_is_mean_of_v(dtype, window):
+    """pos = -1: every ring slot is masked at the finite NEG_INF, so the
+    Pallas kernel (interpret mode), the plain version and the mean of V
+    over all T slots agree.  The card's kernel is held to the same in
+    ``chip_smoke.py``."""
+    q, k, v, _pos, tol = _attn_inputs((2, 32, 2, 3, 16), dtype, 9)
+    pos = np.array([-1, 7], np.int32)
+    pj, pt = jnp.asarray(pos), torch.from_numpy(pos)
+    want = pallas_partition_attention(q[0], k[0], v[0], pj, window=window,
+                                      block_t=8, interpret=True)
+    got = ref.partition_attention(q[1], k[1], v[1], pt, window=window)
+    _close(got, want, tol)
+    mean = np.asarray(v[0].astype(jnp.float32))[0].mean(axis=0)  # (Hkv, Dh)
+    _close(got[0], np.broadcast_to(mean[:, None], (2, 3, 16)), tol)
+    np.testing.assert_allclose(np.asarray(want, np.float32)[0],
+                               np.broadcast_to(mean[:, None], (2, 3, 16)),
+                               atol=tol, rtol=tol)
 
 
 # ------------------------------------- fused snapshot capture/restore

@@ -111,6 +111,39 @@ def test_paged_attention_plain_vs_jax_oracle(dtype, cap):
                                logit_cap=cap), want, tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_paged_attention_no_valid_token_rows_in_pallas(dtype):
+    """What the Pallas kernel (interpret mode) gives for the two paged edge
+    rows, the expectations the card's kernel is held to in
+    ``chip_smoke.py``: a row with no mapped token at or before its position
+    averages V over every mapped slot of its table (its masked scores are
+    the finite NEG_INF and ``-1`` entries are skipped), and a table of only
+    ``-1`` gives zeros.  A third row with valid tokens and a ``-1`` entry
+    inside its range matches the plain version.  (The plain version masks
+    ``-1`` slots instead of skipping them, so it differs on the first two
+    rows.)"""
+    jdt, tdt, tol = DTYPES[dtype]
+    nb, bt, mb, hkv, g, dh = 12, 8, 4, 2, 3, 16
+    rng = np.random.default_rng(21)
+    q = _both(rng.normal(size=(3, hkv, g, dh)), jdt, tdt)
+    kp = _both(rng.normal(size=(nb, bt, hkv, dh)), jdt, tdt)
+    vp = _both(rng.normal(size=(nb, bt, hkv, dh)), jdt, tdt)
+    tables = np.array([[-1, 3, 5, -1], [-1, -1, -1, -1], [2, -1, 7, 9]],
+                      np.int32)
+    pos = np.array([bt - 1, 20, 3 * bt + 2], np.int32)
+    want = np.asarray(pallas_paged_attention(
+        q[0], kp[0], vp[0], jnp.asarray(tables), jnp.asarray(pos),
+        interpret=True), np.float32)
+    v32 = np.asarray(vp[0], np.float32)
+    mean = v32[[3, 5]].reshape(2 * bt, hkv, dh).mean(axis=0)   # (Hkv, Dh)
+    np.testing.assert_allclose(want[0], np.broadcast_to(
+        mean[:, None], (hkv, g, dh)), atol=tol, rtol=tol)
+    assert np.all(want[1] == 0.0)
+    got = ref.paged_attention(q[1], kp[1], vp[1], torch.from_numpy(tables),
+                              torch.from_numpy(pos))
+    _close(got[2], want[2], tol)
+
+
 def test_paged_equals_partition_when_contiguous():
     """The two layouts agree when the block table is the identity
     (``tests/test_kernels.py::test_paged_equals_partition_when_
