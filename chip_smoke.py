@@ -7,11 +7,16 @@ then drives the hotmem ``ServeEngine`` on full-width qwen2-7b (random
 weights from a seed) through cold start, warm start, snapshot capture,
 restore, the paged copy-on-write remap, plug and unplug, and the vanilla
 paged ``ServeEngine`` through the same bursty trace and a scripted unplug
-that must migrate blocks, and checks what comes out.
+that must migrate blocks, then two full-width replicas on one host budget
+through the cluster layer (``launch/cluster_demo.py``): a scripted steal
+per mode, the demo's two-replica trace under the sync and the async
+broker, and two hosts whose late tail restores remotely; it checks what
+comes out.
 
     python3 chip_smoke.py
 
-Every phase prints one JSON line.  The script fails (raises, non-zero exit)
+Every phase prints a JSON line (the cluster phase a second one with every
+steal's wall).  The script fails (raises, non-zero exit)
 when there is no CUDA device, when a kernel does not build, launch or agree
 with its plain version, or when any check of the engine run fails.  A
 ``summary`` line repeats the engine's headline figures near the end.  The
@@ -20,6 +25,8 @@ last three lines are the kernel table, the card's name and power limit as
 """
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -40,14 +47,17 @@ from repro_torch import roofline  # noqa: E402
 from repro_torch.cluster.host import HostMemoryBroker  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
+from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
+from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
+                                             demo_requests, summarize)
 from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.request import (PROFILES,  # noqa: E402
-                                         FunctionProfile, Request)
+                                         FunctionProfile, Request, State)
 from repro_torch.serving.tracegen import (assign_profiles,  # noqa: E402
                                           bursty_trace)
 
@@ -962,7 +972,410 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: where a decode step's time goes
+# Phase 4: the cluster layer — two full-width replicas share one host budget
+# ---------------------------------------------------------------------------
+
+
+def _allocated() -> int:
+    torch.cuda.synchronize(DEV)
+    return torch.cuda.memory_allocated(DEV)
+
+
+def _digest(blob) -> str:
+    """sha256 of a row blob's bytes (a host uint8 array or a device blob)."""
+    if isinstance(blob, torch.Tensor):
+        blob = blob.view(torch.uint8).reshape(-1).cpu().numpy()
+    return hashlib.sha256(memoryview(blob)).hexdigest()
+
+
+def _row_digest(eng, row: int) -> str:
+    """Digest of one arena row, gathered by the plain version (no kernel
+    launch is counted for the check)."""
+    leaves, _axes, _ = M.cache_flat_axes(eng.caches)
+    return _digest(ref.snapshot_capture(
+        leaves, torch.tensor([row], device=DEV), eng._snapshot_layout()))
+
+
+def _arena_bytes(engines) -> int:
+    """Device bytes of the engines' own tensors: row caches and pools."""
+    return sum(x.numel() * x.element_size() for e in engines
+               for x in tree_leaves(e.caches) + tree_leaves(e.pool or []))
+
+
+class ClusterProbe:
+    """Checks the cluster runs from outside the engines' timed walls.
+
+    ``watch`` wraps an engine's ``_unplug_now``: at every steal it keeps
+    the survivors' K/V (hotmem: every arena row; vanilla: each request's
+    blocks read through its block table, after filling the pool with random
+    bytes — decode computes over the rows, so the pool's content is
+    otherwise zeros), reads ``memory_allocated()`` around the unplug, and
+    afterwards holds the drop to the stolen rows' or blocks' bytes and the
+    survivors to their old bytes.  It also wraps ``_offer_snapshot`` and
+    ``_start_restore``: a captured blob must equal its row, and a restored
+    row must equal the blob it came from, by sha256."""
+
+    def __init__(self, spec, gen):
+        self.spec, self.gen = spec, gen
+        self.steals: list[dict] = []
+        self.captured: dict[int, str] = {}
+        self.restores: list[dict] = []
+
+    def watch(self, eng) -> None:
+        unplug, offer, restore = (eng._unplug_now, eng._offer_snapshot,
+                                  eng._start_restore)
+
+        def measured_unplug(units, *, stolen=False):
+            if not stolen:
+                return unplug(units)
+            before = self._survivors(eng)
+            mem0 = _allocated()
+            ev = unplug(units, stolen=True)
+            freed = mem0 - _allocated()
+            self.steals.append({
+                "victim": eng.replica_id, "mode": eng.mode,
+                "units": ev.reclaimed_units,
+                "reclaimed_bytes": ev.reclaimed_bytes,
+                "migrated_blocks": ev.migrated_blocks,
+                "freed_bytes": freed,
+                "survivors": eng._rows() if eng.mode == "hotmem"
+                else len(before),
+                "survivors_unchanged": self._unchanged(eng, before)})
+            return ev
+
+        def checked_offer(prof_name, rid, row):
+            ok = offer(prof_name, rid, row)
+            if ok:
+                snap = eng.broker.snapshots.peek(prof_name)
+                digest = _digest(snap.payload.blob)
+                check(digest == _row_digest(eng, row),
+                      f"{eng.replica_id} captured {prof_name} as its row")
+                self.captured[id(snap.payload)] = digest
+            return ok
+
+        def checked_restore(req, row, snap):
+            restore(req, row, snap)
+            want = self.captured.get(id(snap.payload))
+            got = _row_digest(eng, row)
+            self.restores.append({
+                "replica": eng.replica_id, "key": snap.key,
+                "source": eng.events[-1].detail["source"],
+                "digest": got[:16], "equal": got == want})
+
+        eng._unplug_now = measured_unplug
+        eng._offer_snapshot = checked_offer
+        eng._start_restore = checked_restore
+
+    def _survivors(self, eng) -> dict:
+        if eng.mode == "hotmem":
+            leaves = M.cache_flat_axes(eng.caches)[0]
+            return {"rows": [x.clone() for x in leaves]}
+        _fill_random(eng.pool, self.gen)
+        mgr = eng.arena.manager
+        return {rid: gather_blocks(eng.pool, torch.tensor(
+            [mgr.block_table(rid)], device=DEV)) for rid in mgr._tables}
+
+    def _unchanged(self, eng, before: dict) -> bool:
+        def same(x, y):
+            return torch.equal(x.view(torch.int16), y.view(torch.int16))
+        if eng.mode == "hotmem":
+            leaves, axes, _ = M.cache_flat_axes(eng.caches)
+            return all(same(x, y.narrow(ax, 0, x.shape[ax]))
+                       for x, y, ax in zip(leaves, before["rows"], axes))
+        mgr = eng.arena.manager
+        return set(before) == set(mgr._tables) and all(
+            same(x, y) for rid, old in before.items()
+            for x, y in zip(gather_blocks(eng.pool, torch.tensor(
+                [mgr.block_table(rid)], device=DEV)), old))
+
+    def steal_checks(self, steals: list[dict]) -> dict:
+        spec = self.spec
+        return {
+            "memory drop == stolen bytes": all(
+                s["freed_bytes"] == s["reclaimed_bytes"] == s["units"] * (
+                    spec.bytes_per_partition if s["mode"] == "hotmem"
+                    else spec.bytes_per_block) for s in steals),
+            "survivors' K/V unchanged": all(s["survivors_unchanged"]
+                                            for s in steals)}
+
+
+def _build(cfg, params, spec, probe, **kw):
+    """``launch/cluster_demo.py``'s cluster, every replica watched; checks
+    that building it added only the replicas' arenas to the device."""
+    gc.collect()
+    mem0 = _allocated()
+    sched, hosts, sim = build_cluster(cfg, params, spec, **kw)
+    engines = [e for es in hosts.values() for e in es.values()]
+    grew, arenas = _allocated() - mem0, _arena_bytes(engines)
+    check(grew == arenas,
+          f"replicas added {grew} bytes for {arenas} bytes of arenas: the "
+          f"weights are held once")
+    for eng in engines:
+        probe.watch(eng)
+    return sched, {e.replica_id: e for e in engines}, sim, grew
+
+
+def _spy_async(broker, a) -> tuple[list, list]:
+    """A's decode count when each reclaim order is issued and when each
+    fill lands (``tests/test_cluster.py``'s spies)."""
+    issued, filled = [], []
+    issue, fill = broker._issue_orders, broker._apply_fill
+
+    def decodes():
+        return sum(1 for e in a.events if e.kind == "decode")
+
+    def spy_issue(requester, deficit, grant):
+        issued.append(decodes())
+        return issue(requester, deficit, grant)
+
+    def spy_fill(o, k, **kw):
+        filled.append(decodes())
+        return fill(o, k, **kw)
+
+    broker._issue_orders, broker._apply_fill = spy_issue, spy_fill
+    return issued, filled
+
+
+def _scripted_steal(cfg, params, spec, mode, probe) -> dict:
+    """A steal that cannot fail to happen (sync broker, 10 partitions'
+    budget): B fills its 8 partitions, all but one request finish into warm
+    containers, then A's 8 requests ask for 6 more partitions than the
+    free pool holds.  Hotmem: the survivor is on row 0, under the warm
+    suffix the steal drops.  Vanilla: seven requests grow the pool first,
+    then a 1,024-token survivor takes blocks all over it, so shrinking B
+    to 2 partitions must migrate (the plan is checked before A asks)."""
+    bpp, empty = spec.blocks_per_partition, deque()
+    broker = HostMemoryBroker(budget_units=10 * bpp)
+    a = ServeEngine(cfg, params, spec, mode=mode, keep_alive=3.0, seed=0,
+                    broker=broker, replica_id="A")
+    b = ServeEngine(cfg, params, spec, mode=mode, keep_alive=1000.0, seed=1,
+                    broker=broker, replica_id="B")
+    for eng in (a, b):
+        probe.watch(eng)
+    long = FunctionProfile("long", prompt_tokens=PARTITION_TOKENS // 2,
+                           decode_tokens=min(96, PARTITION_TOKENS // 2 - 8),
+                           max_tokens=PARTITION_TOKENS)
+    shorts = [Request(rid=f"s{i}", profile=PROFILES["bert"], submit_s=0.0)
+              for i in range(7)]
+    if mode == "hotmem":
+        b.submit(Request(rid="L", profile=long, submit_s=0.0))
+        b._tick(empty)
+        for r in shorts:
+            b.submit(r)
+        while len(b.active) > 1 or b.pending:
+            b._tick(empty)
+        check(b._row_req[0].rid == "L", "the survivor holds B's row 0")
+    else:
+        for r in shorts:
+            b.submit(r)
+        while b.active or b.pending:
+            b._tick(empty)
+        b.submit(Request(rid="L", profile=long, submit_s=b.now))
+        b._tick(empty)
+        k, moves = b.arena.manager.shrink_plan(6 * bpp)
+        check(b._free_units() >= 6 and k == 6 * bpp and moves,
+              f"B's shrink by 6 partitions needs no eviction and migrates: "
+              f"{len(moves)} moves")
+    check(b._units() == N_PARTITIONS and broker.free_units == 0
+          and list(b.active) == ["L"],
+          "B holds its 8 partitions, one request active, the pool empty")
+    n0 = len(probe.steals)
+    compact0 = ops.LAUNCHES["kv_compact"]
+    for i in range(8):
+        a.submit(Request(rid=f"a{i}", profile=PROFILES["cnn"],
+                         submit_s=a.now))
+    while a.active or a.pending:
+        a._tick(empty)
+    while b.active:
+        b._tick(empty)
+    steals = probe.steals[n0:]
+    rep = broker.report()
+    broker.check_invariants()
+    for eng in (a, b):
+        eng.arena.manager.check_invariants()
+    done = [e.metrics() for e in (a, b)]
+    return {"mode": mode, "steals": rep["steals"],
+            "stolen_units": rep["stolen_units"], "by_mode": rep["by_mode"],
+            "migrated_bytes": rep["by_mode"][mode]["migrated_bytes"],
+            "steal_walls_ms": [r.wall_seconds * 1e3
+                               for r in broker.steal_log],
+            "steal_records": steals,
+            "kv_compact_launches": ops.LAUNCHES["kv_compact"] - compact0,
+            "completed": sum(m["completed"] for m in done),
+            "killed": sum(m["killed"] for m in done), "submitted": 16,
+            "engines": 2, "natural_fills": sum(
+                r.natural for r in broker.steal_log),
+            "requesters": [r.requester for r in broker.steal_log],
+            "victims": [r.victim for r in broker.steal_log],
+            "decode_steps": sum(m["decode_steps"] for m in done),
+            "migrating_unplugs": _migrating_unplugs((a, b))}
+
+
+def _migrating_unplugs(engines) -> int:
+    """Unplugs (steals or the engines' own) that ran a migration pass."""
+    return sum(1 for e in engines for ev in e.arena.manager.reclaim_events
+               if getattr(ev, "migrated_blocks", 0))
+
+
+def _trace_run(cfg, params, spec, probe, *, mode, async_mode, hosts=1):
+    """The demo's pinned two-replica trace (``examples/cluster_demo.py``),
+    on one host, or on two hosts with the late pooled tail."""
+    n0 = len(probe.steals)
+    sched, engines, sim, grew = _build(
+        cfg, params, spec, probe, mode=mode, async_mode=async_mode,
+        hosts=hosts, policy="pinned")
+    a = engines["A"]
+    spies = _spy_async(sched.brokers["h0"], a) if async_mode else None
+    reqs = demo_requests(hosts > 1)
+    t0 = time.perf_counter()
+    m = sim.run(reqs, max_virtual_s=2000)
+    torch.cuda.synchronize(DEV)
+    seconds = time.perf_counter() - t0
+    sched.check_invariants()
+    for eng in engines.values():
+        eng.arena.manager.check_invariants()
+    row = summarize(mode, sched, m)
+    brokers = list(sched.brokers.values())
+    a_lat = [r.latency for r in a.done if r.state is State.DONE]
+    a_stalls = [e.wall_s for e in a.events if e.kind == "stall"] or [0.0]
+    out = {"mode": mode, "broker": "async" if async_mode else "sync",
+           "hosts": hosts, "submitted": len(reqs), "seconds": seconds,
+           "arena_growth_bytes": grew, **row,
+           "a_latency_p99_s": float(np.percentile(a_lat, 99)),
+           "a_stall_p99_ms": float(np.percentile(a_stalls, 99)) * 1e3,
+           "engines": len(engines),
+           "natural_fills": sum(r.natural for b in brokers
+                                for r in b.steal_log),
+           "steal_walls_ms": [r.wall_seconds * 1e3 for b in brokers
+                              for r in b.steal_log],
+           "steal_records": probe.steals[n0:],
+           "request_stalls": sum((b.request_stalls for b in brokers), []),
+           "pending_units": sum(b.pending_units() for b in brokers),
+           "decode_steps": sum(e.metrics()["decode_steps"]
+                               for e in engines.values()),
+           "migrating_unplugs": _migrating_unplugs(engines.values())}
+    if spies is not None:
+        out["orders_issued_at_a_decode"], out["fills_at_a_decode"] = spies
+    return out
+
+
+def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
+    """Two full-width qwen2-7b replicas on one ``HostMemoryBroker`` with 10
+    partitions' budget (less than two full arenas), on the one ``params``:
+    (a) a scripted steal per mode, (b) the demo's pinned trace in both modes
+    under the sync and the async broker, (c) two hosts with the late pooled
+    tail, B's captures restored remotely on A."""
+    spec = ArenaSpec.from_model(cfg, partition_tokens=PARTITION_TOKENS,
+                                n_partitions=N_PARTITIONS,
+                                block_tokens=BLOCK_TOKENS)
+    probe = ClusterProbe(spec, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    kv_snapshot.reset_stats()
+    t0 = time.perf_counter()
+    scripted = {mode: _scripted_steal(cfg, params, spec, mode, probe)
+                for mode in ("hotmem", "vanilla")}
+    runs = [_trace_run(cfg, params, spec, probe, mode=mode,
+                       async_mode=async_mode)
+            for mode in ("hotmem", "vanilla") for async_mode in (False, True)]
+    fleet = _trace_run(cfg, params, spec, probe, mode="hotmem",
+                       async_mode=False, hosts=2)
+    torch.cuda.synchronize(DEV)
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    stats = dict(kv_snapshot.STATS)
+
+    every = list(scripted.values()) + runs + [fleet]
+    # each engine's one warm-up decode step (made in this phase) and the
+    # steps of its runs
+    decode_steps = sum(r["decode_steps"] + r["engines"] for r in every)
+    migrating = sum(r["migrating_unplugs"] for r in every)
+    h, v = scripted["hotmem"], scripted["vanilla"]
+    asyncs = [r for r in runs if r["broker"] == "async"]
+    checks = {
+        "completed == submitted, killed == 0": all(
+            r["completed"] == r["submitted"] and r["killed"] == 0
+            for r in every),
+        "(a) steals >= 1 per mode, the first A's from B": all(
+            r["steals"] >= 1 and r["steal_records"]
+            and (r["requesters"][0], r["victims"][0]) == ("A", "B")
+            for r in (h, v)),
+        "hotmem migrated_bytes == 0": all(
+            r["migrated_bytes"] == 0 for r in [h] + runs + [fleet]
+            if r["mode"] == "hotmem"),
+        "vanilla migrated_bytes > 0, == migrated blocks x 1,835,008":
+            v["migrated_bytes"] > 0 and spec.bytes_per_block == 1_835_008
+            and all(r["migrated_bytes"] == 1_835_008 * sum(
+                s["migrated_blocks"] for s in r["steal_records"])
+                for r in [v] + runs if r["mode"] == "vanilla"),
+        "(a) kv_compact launches == vanilla steals that migrated":
+            v["kv_compact_launches"] == sum(
+                1 for s in v["steal_records"] if s["migrated_blocks"]) > 0
+            and h["kv_compact_launches"] == 0,
+        "kv_compact launches == migrating vanilla unplugs":
+            launches["kv_compact"] == migrating > 0,
+        **probe.steal_checks(probe.steals),
+        "async: request stalls 0, nothing pending, A decoded mid-order":
+            all(all(s == 0.0 for s in r["request_stalls"])
+                and r["pending_units"] == 0
+                and r["orders_issued_at_a_decode"]
+                and max(r["fills_at_a_decode"])
+                > min(r["orders_issued_at_a_decode"]) for r in asyncs),
+        "(c) remote restores >= 1, snapshot migrations >= 1":
+            fleet["remote"] >= 1 and fleet["mig"] >= 1,
+        "(c) every restored row equals its captured blob": bool(
+            probe.restores) and all(r["equal"] for r in probe.restores),
+        "partition_attention launches == decode steps x layers":
+            launches["partition_attention"] == decode_steps * cfg.num_layers,
+        "capture and restore launches == STATS":
+            launches["snapshot_capture"] == stats["capture_launches"] > 0
+            and launches["snapshot_restore"] == stats["restore_launches"]
+            > 0,
+    }
+    walls = {"scripted": {m: r["steal_walls_ms"]
+                          for m, r in scripted.items()},
+             **{f"trace_{r['broker']}": {} for r in runs}}
+    for r in runs:
+        walls[f"trace_{r['broker']}"][r["mode"]] = r["steal_walls_ms"]
+    table = [{k: r[k] for k in ("mode", "broker", "hosts", "completed",
+                                "submitted", "killed", "steals",
+                                "stolen_units", "reclaimed_bytes",
+                                "migrated_bytes", "stall_p99_ms",
+                                "a_stall_p99_ms", "steal_ms",
+                                "latency_p99_s", "a_latency_p99_s", "warm",
+                                "restore", "remote", "mig", "decode_steps",
+                                "natural_fills", "seconds",
+                                "arena_growth_bytes")}
+             for r in runs + [fleet]]
+    memory = [{k: s[k] for k in ("victim", "mode", "units", "freed_bytes",
+                                 "reclaimed_bytes", "migrated_blocks",
+                                 "survivors")} for s in probe.steals]
+    emit({"phase": "cluster", "seconds": seconds, "launches": launches,
+          "stats": stats, "checks": checks,
+          "scripted": {m: {k: r[k] for k in (
+              "steals", "stolen_units", "by_mode", "kv_compact_launches",
+              "completed", "killed", "decode_steps", "natural_fills")}
+              for m, r in scripted.items()},
+          "runs": table, "restores": probe.restores,
+          "steal_memory": memory[:8], "steals_checked": len(memory)})
+    emit({"phase": "cluster_steal_walls_ms", **walls})
+    for what, ok in checks.items():
+        check(ok, what)
+    summary = {
+        "stall_p99_ms": {f"{r['mode']}_{r['broker']}": r["a_stall_p99_ms"]
+                         for r in runs},
+        "steals": {f"{r['mode']}_{r['broker']}": [
+            r["steals"], r["stolen_units"], r["reclaimed_bytes"],
+            r["migrated_bytes"]] for r in runs},
+        "a_latency_p99_s": {f"{r['mode']}_{r['broker']}":
+                            r["a_latency_p99_s"] for r in runs},
+        "remote_restores": fleet["remote"], "seconds": seconds}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
 
@@ -1019,7 +1432,7 @@ def phase_profile(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the path on the card against the plain path on the CPU
+# Phase 6: the path on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1069,15 +1482,21 @@ def main() -> None:
             phase_kv_compact(cfg, gen)] + phase_snapshot(cfg, gen)
     torch.cuda.empty_cache()
     launches, params, summary = phase_engine(cfg, gen)
+    cluster_launches, summary["cluster"] = phase_cluster(cfg, params, gen)
     summary.update(phase_profile(cfg, params))
     del params
     summary["reference_max_abs_err"] = phase_reference()
     for row in rows:
-        # each kernel's count from the run of the path that drives it: the
-        # engine run, or the layout-contrast entry point
-        counts = launches if row["path"] == "engine" \
-            else row["path_launches"]
-        row["launches"] = counts[row["name"]]
+        # each kernel's count from the runs of the paths that drive it: the
+        # engine and cluster runs, each counted from 0, or the
+        # layout-contrast entry point
+        if row["path"] == "engine":
+            row["launches"] = launches[row["name"]] \
+                + cluster_launches[row["name"]]
+            check(cluster_launches[row["name"]] > 0,
+                  f"{row['name']} ran on the cluster path")
+        else:
+            row["launches"] = row["path_launches"][row["name"]]
         check(row["launches"] > 0,
               f"{row['name']} ran on the {row['path']} path")
     emit({"phase": "summary", **summary})

@@ -3,7 +3,8 @@
   * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
     the JAX package ``repro`` (the card's machine has no JAX);
   * the plain-Python modules the port keeps as copies equal their JAX
-    package sources once ``repro.`` is renamed ``repro_torch.``;
+    package sources once ``repro.`` is renamed ``repro_torch.``, and the
+    functions ``launch/distributed.py`` keeps equal theirs;
   * no kernel wrapper catches an error around a launch (no quiet fallback
     from the kernel to its plain version)."""
 import ast
@@ -27,7 +28,8 @@ VERBATIM = ["configs/base.py"] + [
     "core/hotmem.py", "core/vanilla.py", "serving/request.py",
     "serving/tracegen.py",
     "cluster/topology.py", "cluster/ledger.py", "cluster/snapshots.py",
-    "cluster/host.py"]
+    "cluster/host.py", "cluster/router.py", "cluster/fleet.py",
+    "cluster/sim.py", "cluster/scenarios.py", "cluster/__init__.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -73,6 +75,23 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_verbatim_copy_equals_its_source(rel):
     src = (SRC / "repro" / rel).read_text()
     assert (PORT / rel).read_text() == src.replace("repro.", "repro_torch.")
+
+
+def _functions(path: Path) -> dict[str, str]:
+    text = path.read_text()
+    return {n.name: ast.get_source_segment(text, n)
+            for n in ast.parse(text).body if isinstance(n, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("name", ["run_with_restarts", "hedged_dispatch"])
+def test_distributed_keeps_its_functions_verbatim(name):
+    """``launch/distributed.py`` is an adapted copy: the two functions it
+    keeps equal their JAX package source, and ``initialize`` (which
+    imports JAX) stays out until it moves onto ``torch.distributed``."""
+    rel = "launch/distributed.py"
+    port = _functions(PORT / rel)
+    assert set(port) == {"run_with_restarts", "hedged_dispatch"}
+    assert port[name] == _functions(SRC / "repro" / rel)[name]
 
 
 @pytest.mark.parametrize("rel", ["kernels/ops.py",
