@@ -10,8 +10,12 @@ paged ``ServeEngine`` through the same bursty trace and a scripted unplug
 that must migrate blocks, then two full-width replicas on one host budget
 through the cluster layer (``launch/cluster_demo.py``): a scripted steal
 per mode, the demo's two-replica trace under the sync and the async
-broker, and two hosts whose late tail restores remotely; it checks what
-comes out.
+broker, and two hosts whose late tail restores remotely; then the
+recurrent families, full-width mamba2-780m and recurrentgemma-2b one after
+the other: the snapshot kernels over their cache trees,
+``partition_attention`` at recurrentgemma's MQA shapes, decode against the
+train forward, and the hotmem engine's snapshot, paged copy-on-write and
+bursty schedules; it checks what comes out.
 
     python3 chip_smoke.py
 
@@ -49,13 +53,15 @@ from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
 from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
+from repro_torch.kernels.partition_attention import splits_for  # noqa: E402
 from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
                                              demo_requests, summarize)
 from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
-from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.engine import (ServeEngine,  # noqa: E402
+                                        assemble_pages)
 from repro_torch.serving.request import (PROFILES,  # noqa: E402
                                          FunctionProfile, Request, State)
 from repro_torch.serving.tracegen import (assign_profiles,  # noqa: E402
@@ -146,10 +152,33 @@ def phase_build() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _valid_slots(pos: torch.Tensor, t: int) -> int:
-    """Ring slots holding a token at or before each row's position (no
-    window): the K/V the function needs to read for this run's data."""
-    return int(torch.clamp(pos.long() + 1, max=t).sum())
+def _valid_slots(pos: torch.Tensor, t: int, window: int = 0) -> int:
+    """Ring slots holding a token at or before each row's position, within
+    the window (0: none): the K/V the function needs to read for this
+    run's data."""
+    n = pos.long() + 1
+    if window:
+        n = torch.clamp(n, max=window)
+    return int(torch.clamp(n, min=0, max=t).sum())
+
+
+def _sdpa_call(q, k, v, pos, scale: float, window: int = 0):
+    """One SDPA call computing the ring attention of q (P, Hkv, G, Dh) on
+    k/v (P, T, Hkv, Dh): the GQA unrolled (K/V repeated per query head)
+    and the ring and window mask built here, outside any timing."""
+    p, hkv, g, dh = q.shape
+    t = k.shape[1]
+    slots = torch.arange(t, device=DEV)[None, :]
+    at = pos.long()[:, None]
+    gidx = at - torch.remainder(at - slots, t)
+    mask = gidx >= 0
+    if window:
+        mask &= gidx > at - window
+    qs = q.reshape(p, hkv * g, 1, dh)
+    ks = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    vs = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    return lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale)
 
 
 def phase_attention(cfg, gen) -> dict:
@@ -236,15 +265,7 @@ def phase_attention(cfg, gen) -> dict:
 
     # yardstick: one SDPA call on the unrolled GQA (K/V repeated per query
     # head and the ring mask built beforehand, outside the timing)
-    scale = dh ** -0.5
-    slots = torch.arange(t, device=DEV)[None, :]
-    gidx = lo.long()[:, None] - torch.remainder(lo.long()[:, None] - slots, t)
-    mask = (gidx >= 0)[:, None, None, :]
-    qs = q.reshape(p, hkv * g, 1, dh)
-    ks = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
-    vs = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, attn_mask=mask, scale=scale)
+    sdpa = _sdpa_call(q, k, v, lo, dh ** -0.5)
     _, sdpa_err = allclose(sdpa().reshape(p, hkv, g, dh),
                            ref.partition_attention(q, k, v, lo), TOL_BF16)
 
@@ -284,6 +305,69 @@ def phase_attention(cfg, gen) -> dict:
           "errors": errs, "tight_limits": limits,
           "planted_fault_errors": faults, "sdpa_max_abs_err": sdpa_err,
           "more_shapes": extra, **row})
+    return row
+
+
+def phase_attention_at(cfg, gen, tag: str) -> dict:
+    """``partition_attention`` at a model's own decode shapes (the local
+    blocks' ring of ``cfg.local_window`` slots, P = 8): positions below T,
+    rings wrapped past T, a window of 512 over the ring and the model's
+    window, each against the plain version; the engine's call (the model's
+    window, positions below T) timed against its byte bound and one SDPA
+    call."""
+    p, hkv, dh = N_PARTITIONS, cfg.num_kv_heads, cfg.head_dim
+    t = window = cfg.local_window
+    g = cfg.num_heads // hkv
+    bf16 = torch.bfloat16
+    q = randn((p, hkv, g, dh), bf16, gen)
+    k = randn((p, t, hkv, dh), bf16, gen)
+    v = randn((p, t, hkv, dh), bf16, gen)
+    lo = torch.randint(0, t, (p,), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    ring = torch.randint(t, 3 * t, (p,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    cases = [("below_T", lo, {}), ("ring", ring, {}),
+             ("ring_window_512", ring, {"window": 512}),
+             (f"ring_window_{window}", ring, {"window": window}),
+             (f"below_T_window_{window}", lo, {"window": window})]
+    errs, limits = {}, {}
+    for name, pos, kw in cases:
+        ok, err, limit = attention_close(
+            ops.partition_attention(q, k, v, pos, **kw),
+            ref.partition_attention(q, k, v, pos, **kw))
+        check(ok, f"partition_attention@{tag} {name}: error {err} within "
+                  f"{TOL_BF16} and {limit}")
+        errs[name], limits[name] = err, limit
+
+    scale = cfg.query_scale or dh ** -0.5
+    sdpa = _sdpa_call(q, k, v, lo, scale, window)
+    _, sdpa_err = allclose(
+        sdpa().reshape(p, hkv, g, dh),
+        ref.partition_attention(q, k, v, lo, window=window, scale=scale),
+        TOL_BF16)
+
+    valid = _valid_slots(lo, t, window)
+    item = q.element_size()
+    nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p
+    flops = 4.0 * valid * hkv * g * dh
+    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+    kernel = lambda: ops.partition_attention(  # noqa: E731
+        q, k, v, lo, window=window, scale=scale)
+    plain = lambda: ref.partition_attention(  # noqa: E731
+        q, k, v, lo, window=window, scale=scale)
+    row = {"name": f"partition_attention@{tag}", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
+           "replaces": "src/repro/kernels/partition_attention.py:70",
+           "path": "recurrent",
+           "max_abs_err": errs[f"below_T_window_{window}"],
+           "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": median_ms(sdpa)}
+    emit({"phase": "kernel", "config": cfg.name,
+          "shape": [p, t, hkv, g, dh], "dtype": "bf16", "window": window,
+          "splits": splits_for(q, t), "valid_slots": valid,
+          "bytes": nbytes, "flops": flops, "errors": errs,
+          "tight_limits": limits, "sdpa_max_abs_err": sdpa_err, **row})
     return row
 
 
@@ -538,7 +622,10 @@ def phase_kv_compact(cfg, gen) -> dict:
     return row
 
 
-def phase_snapshot(cfg, gen) -> list[dict]:
+def phase_snapshot(cfg, gen, tag: str = "") -> list[dict]:
+    """The two snapshot kernels over the model's full 8 x 2048 cache tree,
+    filled with random bytes.  ``tag`` names the kernel line's rows
+    (``snapshot_capture@<tag>``) of a model other than the main path's."""
     caches = M.init_caches(cfg, N_PARTITIONS, PARTITION_TOKENS, device=DEV)
     leaves, axes, _ = M.cache_flat_axes(caches)
     for leaf in leaves:
@@ -583,17 +670,32 @@ def phase_snapshot(cfg, gen) -> list[dict]:
     bound_s, bound_by = roofline.bound_seconds(nbytes)
 
     # yardsticks, one PyTorch call each on the same row: a concatenation of
-    # the leaves' row slices (they share one shape here), and one
+    # the leaves' row slices where they share one shape (else one
+    # multi-tensor copy of the slices into the blob's parts: torch.cat
+    # would need a flatten, which copies a strided slice first), and one
     # multi-tensor copy of the blob's slices back into them
     sel = [leaf.select(ax, 5) for leaf, ax in zip(leaves, axes)]
-    check(len({x.shape for x in sel}) == 1, "leaf row slices share a shape")
-    lib_capture = lambda: torch.cat(sel)  # noqa: E731
-    check(torch.equal(bits(lib_capture().reshape(1, -1)), bits(blob)),
-          "torch.cat of the row slices equals the blob")
 
     def blob_parts(b):
         return [b[0, s.offset:s.offset + s.size].view(x.shape)
                 for s, x in zip(layout.slots, sel)]
+
+    if len({x.shape for x in sel}) == 1:
+        lib_name = "torch.cat"
+        lib_capture = lambda: torch.cat(sel)  # noqa: E731
+        lib_blob = lambda: lib_capture().reshape(1, -1)  # noqa: E731
+    else:
+        lib_name = "torch._foreach_copy_"
+        out_blob = torch.empty_like(blob)
+        out_parts = blob_parts(out_blob)
+        lib_capture = lambda: torch._foreach_copy_(  # noqa: E731
+            out_parts, sel)
+
+        def lib_blob():
+            lib_capture()
+            return out_blob
+    check(torch.equal(bits(lib_blob()), bits(blob)),
+          f"{lib_name} of the row slices equals the blob")
 
     parts = blob_parts(blob)
     lib_restore = lambda: torch._foreach_copy_(sel, parts)  # noqa: E731
@@ -614,36 +716,45 @@ def phase_snapshot(cfg, gen) -> list[dict]:
         leaves, r, layout)
     plain_restore = lambda: ref.snapshot_restore(  # noqa: E731
         leaves, blob, r, layout)
-    # the kernel with its row ids copied to the card synchronously, as the
-    # wrapper did before it staged them through pinned memory: the host's
-    # work after that copy lands inside the events
-    sync_rows = lambda: kv_snapshot.snapshot_capture(  # noqa: E731
-        ops.load(), leaves,
-        torch.tensor(rows, dtype=torch.int32, device=DEV), layout=layout)
-    check(torch.equal(bits(sync_rows()), bits(blob)),
-          "capture with synchronously copied rows equals the blob")
+    suffix = f"@{tag}" if tag else ""
     out = [
-        {"name": "snapshot_capture", "route": "cuda",
+        {"name": "snapshot_capture" + suffix, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:123",
-         "path": "engine",
+         "path": "recurrent" if tag else "engine",
          "max_abs_err": 0.0, "ms": median_ms(capture),
          "plain_ms": median_ms(plain_capture),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-         "library_ms": median_ms(lib_capture)},
-        {"name": "snapshot_restore", "route": "cuda",
+         "library_ms": median_ms(lib_capture), "library": lib_name},
+        {"name": "snapshot_restore" + suffix, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:160",
-         "path": "engine",
+         "path": "recurrent" if tag else "engine",
          "max_abs_err": 0.0, "ms": median_ms(restore),
          "plain_ms": median_ms(plain_restore),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-         "library_ms": median_ms(lib_restore)},
+         "library_ms": median_ms(lib_restore),
+         "library": "torch._foreach_copy_"},
     ]
-    out[0]["ms_sync_staged_rows"] = median_ms(sync_rows)
+    if not tag:
+        # the kernel with its row ids copied to the card synchronously, as
+        # the wrapper did before it staged them through pinned memory: the
+        # host's work after that copy lands inside the events
+        sync_rows = lambda: kv_snapshot.snapshot_capture(  # noqa: E731
+            ops.load(), leaves,
+            torch.tensor(rows, dtype=torch.int32, device=DEV),
+            layout=layout)
+        check(torch.equal(bits(sync_rows()), bits(blob)),
+              "capture with synchronously copied rows equals the blob")
+        out[0]["ms_sync_staged_rows"] = median_ms(sync_rows)
+    unit, desc = kv_snapshot.copy_plan(leaves, blob, layout)
     for row in out:
-        emit({"phase": "kernel", "rows": 1, "row_bytes": row_bytes,
-              "bytes": nbytes, "checked_rows": list(errs), **row})
+        emit({"phase": "kernel", "config": cfg.name, "rows": 1,
+              "row_bytes": row_bytes, "bytes": nbytes, "leaves": [
+                  list(x.shape) for x in leaves], "batch_axes": axes,
+              "copy_unit": unit, "slice_bytes": [d * unit
+                                                 for d in desc[2::4]],
+              "checked_rows": list(errs), **row})
     return out
 
 
@@ -1047,7 +1158,9 @@ class ClusterProbe:
             ok = offer(prof_name, rid, row)
             if ok:
                 snap = eng.broker.snapshots.peek(prof_name)
-                digest = _digest(snap.payload.blob)
+                digest = _digest(
+                    snap.payload.blob if snap.pages is None else
+                    assemble_pages(eng.broker.snapshot_page_specs(prof_name)))
                 check(digest == _row_digest(eng, row),
                       f"{eng.replica_id} captured {prof_name} as its row")
                 self.captured[id(snap.payload)] = digest
@@ -1375,7 +1488,256 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: where a decode step's time goes
+# Phase 5: the recurrent families — full-width mamba2-780m and
+# recurrentgemma-2b through the hotmem engine
+# ---------------------------------------------------------------------------
+
+RECURRENT = {"mamba2-780m": 38_707_200,        # bytes of one 2048-token row
+             "recurrentgemma-2b": 17_145_856}
+
+
+def _decode_vs_forward(cfg, params) -> float:
+    """Prefill 255 tokens, decode the 256th, against the train forward on
+    all 256 (one SSD chunk): relative error of the last logits, under 5e-2
+    as in ``tests/test_decode_consistency.py``."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g,
+                         device=DEV, dtype=torch.int32)
+    full = M.forward_train(cfg, params, {"tokens": toks})[:, 255].float()
+    caches = M.init_caches(cfg, 1, PARTITION_TOKENS, device=DEV)
+    _, caches = M.prefill(cfg, params, {"tokens": toks[:, :255]}, caches)
+    lg, _ = M.decode_step(cfg, params, toks[:, 255:],
+                          torch.tensor([255], dtype=torch.int32, device=DEV),
+                          caches)
+    lg = lg.float()
+    err = float((full - lg).abs().max()) / float(full.abs().max())
+    check(tuple(lg.shape) == (1, full.shape[-1])
+          and bool(torch.isfinite(lg).all()) and err < 5e-2,
+          f"{cfg.name}: decode vs forward relative error {err} < 5e-2")
+    return err
+
+
+def _requested() -> int:
+    """Bytes the live tensors asked the caching allocator for.  Unlike
+    ``memory_allocated()`` this is not rounded to the allocator's blocks:
+    a request served from a cached block less than 1 MB larger takes the
+    whole block, so one unplug's ``memory_allocated()`` drop can be off by
+    that slack (and the next one off by as much the other way)."""
+    torch.cuda.synchronize(DEV)
+    return torch.cuda.memory_stats(DEV)["requested_bytes.all.current"]
+
+
+def _watch_unplugs(eng, drops: list) -> None:
+    """Record ``memory_allocated()`` and the requested bytes around each
+    row sync that drops rows (an unplug), with the bytes the dropped rows
+    held."""
+    sync_rows = eng._sync_rows
+
+    def measured(parts):
+        rows = eng._rows()
+        before, asked = _allocated(), _requested()
+        sync_rows(parts)
+        if parts < rows:
+            drops.append({"replica": eng.replica_id, "rows": rows,
+                          "parts": parts,
+                          "freed_bytes": before - _allocated(),
+                          "freed_requested_bytes": asked - _requested(),
+                          "row_bytes": (rows - parts)
+                          * eng.spec.bytes_per_partition})
+    eng._sync_rows = measured
+
+
+def _recurrent_engines(cfg, params, gen) -> tuple[dict, dict]:
+    """The hotmem schedules on one model: (a) cold, warm, capture,
+    restore, restore; (b) paged copy-on-write with 2 MiB pages, a local
+    remap and a fresh replica; (c) the bursty trace up and down the
+    ladder.  Every engine is made inside the counted run, so each one's
+    warm-up decode step counts."""
+    spec = ArenaSpec.from_model(cfg, partition_tokens=PARTITION_TOKENS,
+                                n_partitions=N_PARTITIONS,
+                                block_tokens=BLOCK_TOKENS)
+    check(spec.bytes_per_partition == RECURRENT[cfg.name],
+          f"{cfg.name}: bytes per partition {spec.bytes_per_partition}")
+    refused = ""
+    try:
+        ServeEngine(cfg, params, spec, mode="vanilla")
+    except AssertionError as e:
+        refused = str(e)
+    check("token-extensive" in refused,
+          f"{cfg.name}: the vanilla engine is refused ({refused!r})")
+    bpp = spec.blocks_per_partition
+    probe = ClusterProbe(spec, gen)
+    drops = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    kv_snapshot.reset_stats()
+    t0 = time.perf_counter()
+    snap_broker = HostMemoryBroker(budget_units=12 * bpp,
+                                   snapshot_pool_units=4 * bpp)
+    snap = ServeEngine(cfg, params, spec, mode="hotmem", keep_alive=2.0,
+                       seed=0, broker=snap_broker, replica_id="A")
+    cow_broker = HostMemoryBroker(budget_units=12 * bpp,
+                                  snapshot_pool_units=4 * bpp)
+    cow_a = ServeEngine(cfg, params, spec, keep_alive=2.0, seed=0,
+                        broker=cow_broker, replica_id="A",
+                        snapshot_page_bytes=PAGE_BYTES)
+    cow_b = ServeEngine(cfg, params, spec, keep_alive=2.0, seed=1,
+                        broker=cow_broker, replica_id="B",
+                        snapshot_page_bytes=PAGE_BYTES)
+    burst = ServeEngine(cfg, params, spec, mode="hotmem", keep_alive=3.0)
+    engines = (snap, cow_a, cow_b, burst)
+    for eng in engines:
+        probe.watch(eng)
+        _watch_unplugs(eng, drops)
+    _run_one(snap, "c0")
+    _run_one(snap, "w0")
+    _expire(snap)
+    _run_one(snap, "s0")
+    _expire(snap)
+    _run_one(snap, "s1")
+    m_snap = snap.metrics()
+    _run_one(cow_a, "c0")
+    _expire(cow_a)
+    stats_before = dict(kv_snapshot.STATS)
+    _run_one(cow_a, "r0")
+    remap_h2d = kv_snapshot.STATS["h2d_bytes"] - stats_before["h2d_bytes"]
+    remaps = kv_snapshot.STATS["remap_restores"] \
+        - stats_before["remap_restores"]
+    h2d_before = kv_snapshot.STATS["h2d_transfers"]
+    _run_one(cow_b, "r1")
+    fresh_h2d = kv_snapshot.STATS["h2d_transfers"] - h2d_before
+    reqs = _bursty()
+    m_burst = burst.run(reqs, max_virtual_s=2000)
+    torch.cuda.synchronize(DEV)
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    stats = dict(kv_snapshot.STATS)
+
+    n_leaves = len(M.cache_flat_axes(burst.caches)[0])
+    metrics = [e.metrics() for e in engines]
+    decode_steps = sum(m["decode_steps"] for m in metrics)
+    captures = sum(m["snapshots_taken"] for m in metrics)
+    restores = sum(m["restore_starts"] for m in metrics)
+    attn_layers = sum(k in ("attn", "local", "global")
+                      for k in cfg.block_pattern) * cfg.n_groups \
+        + sum(k in ("attn", "local", "global") for k in cfg.tail_pattern)
+    cow_ev = [e for e in cow_a.events if e.kind == "restore"]
+    pages = -(-RECURRENT[cfg.name] // PAGE_BYTES)
+    row_bytes = kv_snapshot.expected_row_bytes(cfg, PARTITION_TOKENS)
+    snap_ev = [e for e in snap.events if e.kind == "snapshot"]
+    checks = {
+        "completed == submitted, killed == 0":
+            m_burst["completed"] == len(reqs)
+            and all(m["killed"] == 0 for m in metrics)
+            and all(not e.active and not e.pending for e in engines),
+        "migrated_bytes == 0": all(m["migrated_bytes"] == 0
+                                   for m in metrics),
+        "reclaimed_bytes > 0, plugged and unplugged":
+            m_burst["reclaimed_bytes"] > 0
+            and {"plug", "unplug"} <= {e.kind for e in burst.events},
+        "requested bytes drop == dropped rows' bytes at every unplug; "
+        "memory_allocated() within 1 MiB of block slack per leaf":
+            bool(drops) and all(
+                d["freed_requested_bytes"] == d["row_bytes"]
+                and abs(d["freed_bytes"] - d["row_bytes"])
+                < n_leaves * (1 << 20) for d in drops),
+        "cold, warm, restore starts": (m_snap["cold_starts"],
+                                       m_snap["warm_starts"]) == (1, 1)
+        and m_snap["restore_starts"] >= 2,
+        "captured bytes == expected_row_bytes":
+            m_snap["snapshots_taken"] == 1
+            and snap_ev[0].detail["bytes"] == row_bytes,
+        "every restored row equals its captured blob (sha256)":
+            len(probe.restores) == restores >= 4
+            and all(r["equal"] for r in probe.restores),
+        "zero-h2d remap restore": remaps == 1 and remap_h2d == 0
+        and cow_ev[-1].detail["pages_shared"]
+        == cow_ev[-1].detail["pages_total"] == pages,
+        "fresh replica pays one h2d": cow_b.restore_starts == 1
+        and fresh_h2d == 1,
+        "partition_attention launches == (decode steps + warm-ups) x "
+        "attention layers": launches["partition_attention"]
+        == (decode_steps + len(engines)) * attn_layers,
+        "capture launches == captures == STATS":
+            launches["snapshot_capture"] == captures
+            == stats["capture_launches"] > 0,
+        "restore launches == restores == STATS":
+            launches["snapshot_restore"] == restores
+            == stats["restore_launches"] > 0,
+        "no kv_compact or paged_attention launch":
+            launches["kv_compact"] == launches["paged_attention"] == 0,
+    }
+    walls = {k: [e.wall_s * 1e3 for e in burst.events if e.kind == k]
+             for k in ("decode", "prefill", "plug", "unplug")}
+    for k in ("snapshot", "restore"):
+        walls[k] = [e.wall_s * 1e3 for eng in (snap, cow_a, cow_b)
+                    for e in eng.events if e.kind == k]
+    wall_stats = {k: {"n": len(v), "median": float(np.median(v)),
+                      "min": min(v), "max": max(v)}
+                  for k, v in walls.items() if v}
+    emit({"phase": "recurrent_engine", "config": cfg.name,
+          "run_seconds": run_s, "bytes_per_partition":
+          spec.bytes_per_partition, "pages_per_row": pages,
+          "attention_layers": attn_layers, "decode_steps": decode_steps,
+          "engines": len(engines), "launches": launches, "stats": stats,
+          "unplug_memory": drops, "restores": probe.restores,
+          "walls_ms": {k: v for k, v in walls.items() if k != "decode"},
+          "wall_stats_ms": wall_stats,
+          "burst": {k: v for k, v in m_burst.items() if k != "events"},
+          "snapshot_schedule": {k: v for k, v in m_snap.items()
+                                if k != "events"},
+          "vanilla_refused": refused, "checks": checks})
+    for what, ok in checks.items():
+        check(ok, f"{cfg.name}: {what}")
+    summary = {"run_seconds": run_s,
+               "wall_median_ms": {k: v["median"]
+                                  for k, v in wall_stats.items()},
+               "reclaimed_bytes": m_burst["reclaimed_bytes"],
+               "unplug_freed_bytes": [d["freed_bytes"] for d in drops],
+               "latency_p50_s": m_burst["latency_p50"],
+               "latency_p99_s": m_burst["latency_p99"]}
+    return launches, summary
+
+
+def phase_recurrent(arch, gen) -> tuple[list[dict], dict]:
+    """One recurrent model at full width, then freed: (a) the snapshot
+    kernels over its cache tree and, where it has local attention,
+    ``partition_attention`` at its shapes; (b) decode against the train
+    forward; (c) the hotmem engine's schedules; (d) where a decode step's
+    time goes."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    rows = phase_snapshot(cfg, gen, tag=arch)
+    if "local" in cfg.block_pattern:
+        rows.append(phase_attention_at(cfg, gen, arch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, 0, device=DEV)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, the spec says "
+          f"{cfg.param_count()}")
+    err = _decode_vs_forward(cfg, params)
+    emit({"phase": "recurrent_model", "config": arch, "params": n_params,
+          "param_bytes": sum(x.numel() * x.element_size()
+                             for x in tree_leaves(params)),
+          "decode_vs_forward_rel_err": err})
+    launches, summary = _recurrent_engines(cfg, params, gen)
+    for row in rows:
+        row["launches"] = launches[row["name"].split("@")[0]]
+    summary.update(phase_profile(cfg, params))
+    summary["decode_vs_forward_rel_err"] = err
+    summary["seconds"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: where a decode step's time goes
 # ---------------------------------------------------------------------------
 
 
@@ -1414,7 +1776,7 @@ def phase_profile(cfg, params) -> dict:
                       and e.self_device_time_total > 0), reverse=True)
     busy_us = sum(k[0] for k in kernels)
     attn_us = sum(k[0] for k in kernels if "partition_attention" in k[2])
-    emit({"phase": "profile", "rows": N_PARTITIONS,
+    emit({"phase": "profile", "config": cfg.name, "rows": N_PARTITIONS,
           "position": PARTITION_TOKENS // 2,
           "step_ms_median": float(np.median(walls)) * 1e3,
           "step_ms_min": min(walls) * 1e3,
@@ -1432,16 +1794,16 @@ def phase_profile(cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the path on the card against the plain path on the CPU
+# Phase 7: the path on the card against the plain path on the CPU
 # ---------------------------------------------------------------------------
 
 
-def phase_reference() -> float:
-    """Reduced qwen2-7b with the same weights: prefill + three decode steps
-    with the kernels on the card against the plain versions on the CPU.
-    Tolerance 2e-2 of the largest logit: bf16 activations round at other
-    places in cuBLAS and in PyTorch's CPU kernels."""
-    cfg = reduced(get_config(ARCH))
+def phase_reference(arch: str) -> float:
+    """The reduced config with the same weights: prefill + four decode
+    steps with the kernels on the card against the plain versions on the
+    CPU.  Tolerance 2e-2 of the largest logit: bf16 activations round at
+    other places in cuBLAS and in PyTorch's CPU kernels."""
+    cfg = reduced(get_config(arch))
     params_cpu = M.init_params(cfg, 0, device="cpu")
     params = tree_map(lambda x: x.to(DEV), params_cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1463,7 +1825,7 @@ def phase_reference() -> float:
     emit({"phase": "reference", "config": cfg.name, "max_abs_err": err,
           "max_abs_logit": scale})
     check(bool(torch.isfinite(out["cuda"]).all()) and err <= 2e-2 * scale,
-          f"card vs CPU logits: {err} > 2e-2 * {scale}")
+          f"{cfg.name}: card vs CPU logits: {err} > 2e-2 * {scale}")
     return err
 
 
@@ -1483,9 +1845,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches, params, summary = phase_engine(cfg, gen)
     cluster_launches, summary["cluster"] = phase_cluster(cfg, params, gen)
+    for arch in RECURRENT:
+        more, summary[arch] = phase_recurrent(arch, gen)
+        rows += more
     summary.update(phase_profile(cfg, params))
     del params
-    summary["reference_max_abs_err"] = phase_reference()
+    summary["reference_max_abs_err"] = {
+        arch: phase_reference(arch) for arch in (ARCH, *RECURRENT)}
     for row in rows:
         # each kernel's count from the runs of the paths that drive it: the
         # engine and cluster runs, each counted from 0, or the
@@ -1495,6 +1861,8 @@ def main() -> None:
                 + cluster_launches[row["name"]]
             check(cluster_launches[row["name"]] > 0,
                   f"{row['name']} ran on the cluster path")
+        elif row["path"] == "recurrent":
+            pass            # counted on its model's engine run
         else:
             row["launches"] = row["path_launches"][row["name"]]
         check(row["launches"] > 0,

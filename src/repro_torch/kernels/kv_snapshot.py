@@ -85,6 +85,8 @@ def build_layout(leaves: Sequence[Any], axes: Sequence[int]) -> RowLayout:
 # Kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+MAX_LEAVES = 32        # csrc/kv_snapshot.cu::kMaxLeaves (one launch's leaves)
+
 
 def widest_unit(sizes) -> int:
     """Widest copy unit (16, 8, 4, 2 or 1 bytes) dividing every size and
@@ -106,23 +108,22 @@ def _unit_bytes(layout: RowLayout, leaves, blob) -> int:
     return widest_unit(sizes)
 
 
-def _launch(ext, capture: bool, leaves, blob, rows, layout: RowLayout):
-    dev = blob.device
-    if dev.type != "cuda":
-        raise ValueError(f"snapshot kernels run on CUDA tensors, got {dev}")
+def copy_plan(leaves, blob, layout: RowLayout) -> tuple[int, list[int]]:
+    """The kernel's copy unit and its per-leaf descriptors, four ints a
+    leaf in copy units: ``outer`` (chunks in one row slice: the product of
+    the dims before the batch axis, 1 for a batch-axis-0 leaf), ``batch``
+    (the batch extent), ``inner`` (units per chunk) and ``offset`` (units
+    from the start of a blob row).  Unit ``e`` of chunk ``o`` of row ``r``
+    lies at unit ``(o * batch + r) * inner + e`` of the leaf."""
     if len(leaves) != len(layout.slots):
         raise ValueError("leaf count does not match the layout")
-    n = rows.shape[0]
-    if blob.dtype != layout.torch_dtype or not blob.is_contiguous() \
-            or tuple(blob.shape) != (n, layout.total_elems):
-        raise ValueError(f"blob {tuple(blob.shape)} {blob.dtype} does not "
-                         f"match the layout ({n}, {layout.total_elems})")
-    if rows.dtype != torch.int32 or rows.device != dev:
-        raise ValueError("rows must be int32 on the blob's device")
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"{len(leaves)} leaves: one launch takes at most "
+                         f"{MAX_LEAVES}")
     unit = _unit_bytes(layout, leaves, blob)
     desc = []
     for leaf, slot in zip(leaves, layout.slots):
-        if leaf.device != dev or leaf.dtype != layout.torch_dtype \
+        if leaf.device != blob.device or leaf.dtype != layout.torch_dtype \
                 or not leaf.is_contiguous():
             raise ValueError("every leaf must be contiguous, on the blob's "
                              "device, in the layout's dtype")
@@ -135,6 +136,21 @@ def _launch(ext, capture: bool, leaves, blob, rows, layout: RowLayout):
         inner_b = math.prod(slot.block_shape[ax + 1:]) * layout.itemsize
         desc += [outer, leaf.shape[ax], inner_b // unit,
                  slot.offset * layout.itemsize // unit]
+    return unit, desc
+
+
+def _launch(ext, capture: bool, leaves, blob, rows, layout: RowLayout):
+    dev = blob.device
+    if dev.type != "cuda":
+        raise ValueError(f"snapshot kernels run on CUDA tensors, got {dev}")
+    n = rows.shape[0]
+    if blob.dtype != layout.torch_dtype or not blob.is_contiguous() \
+            or tuple(blob.shape) != (n, layout.total_elems):
+        raise ValueError(f"blob {tuple(blob.shape)} {blob.dtype} does not "
+                         f"match the layout ({n}, {layout.total_elems})")
+    if rows.dtype != torch.int32 or rows.device != dev:
+        raise ValueError("rows must be int32 on the blob's device")
+    unit, desc = copy_plan(leaves, blob, layout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ext.snapshot_copy(capture, list(leaves), desc, blob, rows,

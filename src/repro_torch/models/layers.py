@@ -28,7 +28,7 @@ class ParamSpec:
     shape: tuple[int, ...]
     dtype: Any = bf16
     axes: tuple[Optional[str], ...] = ()
-    init: str = "normal"        # normal | zeros | ones
+    init: str = "normal"        # normal | zeros | ones | a_log | dt_bias
     scale: float = 1.0          # stddev multiplier for "normal"
 
 
@@ -112,6 +112,13 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "a_log":    # mamba2: A in [1, 16], store log
+        u = torch.rand(spec.shape, generator=gen, dtype=f32, device=device)
+        return torch.log(u.mul_(15.0).add_(1.0)).to(spec.dtype)
+    if spec.init == "dt_bias":  # mamba2: softplus^-1(dt), dt in [1e-3, 0.1]
+        u = torch.rand(spec.shape, generator=gen, dtype=f32, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
     if spec.init != "normal":
         raise NotImplementedError(f"init {spec.init!r} is not ported yet")
     # fan-in rule of the JAX package (repro.models.layers._init_leaf)

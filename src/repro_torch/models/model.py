@@ -1,7 +1,8 @@
 """Top-level model API: param/cache specs, init, the row-wise cache
 utilities and the entry points (train forward, prefill, decode step).
 
-Port of ``repro.models.model`` for the dense family.  Params and caches are
+Port of ``repro.models.model`` for the dense, ssm (mamba2) and hybrid
+(recurrentgemma) families.  Params and caches are
 plain nested dicts of tensors (tuples for the stacked groups), with the JAX
 package's tree structure, so ``tree_flatten`` orders their leaves the same
 way and the snapshot blob layout carries over byte for byte.
@@ -25,11 +26,11 @@ from repro_torch.models.layers import materialize, tree_flatten, tree_map
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.mrope_sections or cfg.post_norms \
-            or cfg.scale_embeddings:
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mrope_sections \
+            or cfg.post_norms:
         raise NotImplementedError(
-            f"{cfg.name}: only dense decoders without M-RoPE, post-norms or "
-            f"embedding scaling are ported yet")
+            f"{cfg.name}: only dense, ssm and hybrid decoders without "
+            f"M-RoPE or post-norms are ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +178,7 @@ def forward_train(cfg: ModelConfig, params, batch: dict):
     pos = batch.get("positions")
     if pos is None:
         pos = _train_positions(b, s, tokens.device)
-    x = transformer.embed_tokens(params["embed"], tokens)
+    x = transformer.embed_tokens(cfg, params["embed"], tokens)
     x, _ = transformer.run_decoder(cfg, params["decoder"], x, mode="train",
                                    positions=pos)
     return transformer.lm_logits(cfg, params["embed"], x)
@@ -191,7 +192,7 @@ def prefill(cfg: ModelConfig, params, batch: dict, caches):
     pos = batch.get("positions")
     if pos is None:
         pos = _train_positions(b, s, tokens.device)
-    x = transformer.embed_tokens(params["embed"], tokens)
+    x = transformer.embed_tokens(cfg, params["embed"], tokens)
     x, caches = transformer.run_decoder(cfg, params["decoder"], x,
                                         mode="prefill", caches=caches,
                                         positions=pos)
@@ -203,7 +204,7 @@ def decode_step(cfg: ModelConfig, params, tokens, positions, caches):
     """One decode step.  tokens (B,1) int; positions (B,) global position
     of the new token per row (continuous batching: rows are independent).
     Returns (logits (B,Vp), caches), the caches updated in place."""
-    x = transformer.embed_tokens(params["embed"], tokens)
+    x = transformer.embed_tokens(cfg, params["embed"], tokens)
     x, caches = transformer.run_decoder(cfg, params["decoder"], x,
                                         mode="decode", caches=caches,
                                         positions=positions)

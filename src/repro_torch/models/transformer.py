@@ -1,41 +1,67 @@
-"""Decoder-only transformer assembly for the dense family.
+"""Decoder-only transformer assembly: block groups + cache trees.
 
 Port of ``repro.models.transformer``.  Parameters and caches keep the JAX
 package's stacked layout: one ``block_pattern`` group repeated ``n_groups``
 times, every leaf of the group carrying a leading ``n_groups`` axis (KV
 caches are ``(n_groups, P, T, Hkv, Dh)``), plus optional unstacked
-``tail_pattern`` blocks.  Where JAX scans over the groups, this module loops
-over them and hands each block the group's slice (a view, so in-place cache
-writes land in the stacked tensors).  Only ``attn`` blocks are ported; every
-other block kind raises.
+``tail_pattern`` blocks whose batch axis is 0.  Where JAX scans over the
+groups, this module loops over them and hands each block the group's slice
+(a view, so in-place cache writes land in the stacked tensors).  Block
+kinds: ``attn``, ``local`` and ``global`` attention, ``ssm`` (mamba2) and
+``rglru`` (recurrentgemma).  Experts and post-norms are not ported yet and
+raise.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
                                        mlp_spec, norm_spec, padded_vocab,
                                        rmsnorm, softcap, stack_specs)
 
+ATTN_KINDS = ("attn", "local", "global")
+KINDS = ATTN_KINDS + ("ssm", "rglru")
+
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind != "attn" or cfg.num_experts:
+    if kind not in KINDS or cfg.num_experts or cfg.post_norms:
+        extra = " with experts" if cfg.num_experts else \
+            " with post-norms" if cfg.post_norms else ""
         raise NotImplementedError(
-            f"{cfg.name}: block kind {kind!r}"
-            f"{' with experts' if cfg.num_experts else ''} is not ported "
-            f"yet (dense attention blocks only)")
+            f"{cfg.name}: block kind {kind!r}{extra} is not ported yet")
 
 
 def block_spec(cfg, kind: str):
     _check_kind(cfg, kind)
     d = cfg.d_model
+    if kind == "ssm":
+        return {"ln": norm_spec(d), "mixer": ssm_mod.ssm_spec(cfg)}
+    if kind == "rglru":
+        return {"ln1": norm_spec(d), "rec": rglru_mod.rglru_spec(cfg),
+                "ln2": norm_spec(d), "ffn": mlp_spec(cfg)}
     return {"ln1": norm_spec(d), "attn": attn_mod.attn_spec(cfg),
             "ln2": norm_spec(d), "ffn": mlp_spec(cfg)}
 
 
+def _window_for(cfg, kind: str) -> int:
+    if kind == "local":
+        return cfg.local_window
+    if kind == "global":
+        return 0
+    return cfg.sliding_window
+
+
 def block_cache_spec(cfg, kind: str, batch: int, cache_len: int):
     _check_kind(cfg, kind)
+    if kind == "ssm":
+        return ssm_mod.make_ssm_cache_spec(cfg, batch)
+    if kind == "rglru":
+        return rglru_mod.make_rglru_cache_spec(cfg, batch)
     return attn_mod.make_attn_cache_spec(cfg, batch, cache_len,
-                                         cfg.sliding_window)
+                                         _window_for(cfg, kind))
 
 
 def decoder_specs(cfg):
@@ -72,11 +98,22 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def block_forward(cfg, p, x, *, mode: str, cache, positions):
-    h, _ = attn_mod.attention(cfg, p["attn"],
-                              rmsnorm(p["ln1"], x, cfg.norm_eps),
-                              positions=positions, mode=mode, cache=cache,
-                              window=cfg.sliding_window)
+def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
+    if kind == "ssm":
+        h, _ = ssm_mod.ssm_block(cfg, p["mixer"],
+                                 rmsnorm(p["ln"], x, cfg.norm_eps),
+                                 mode=mode, cache=cache)
+        return x + h
+    if kind == "rglru":
+        h, _ = rglru_mod.rglru_block(cfg, p["rec"],
+                                     rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                     mode=mode, cache=cache)
+    else:
+        h, _ = attn_mod.attention(cfg, p["attn"],
+                                  rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                  positions=positions, mode=mode,
+                                  cache=cache,
+                                  window=_window_for(cfg, kind))
     x = x + h
     return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
 
@@ -84,20 +121,26 @@ def block_forward(cfg, p, x, *, mode: str, cache, positions):
 def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None):
     """x (B,S,D) -> (y (B,S,D), caches), the caches updated in place."""
     for gi in range(cfg.n_groups):
-        for i, _kind in enumerate(cfg.block_pattern):
+        for i, kind in enumerate(cfg.block_pattern):
             c = _index(caches["groups"][i], gi) if caches is not None \
                 else None
-            x = block_forward(cfg, _index(params["groups"][i], gi), x,
+            x = block_forward(cfg, kind, _index(params["groups"][i], gi), x,
                               mode=mode, cache=c, positions=positions)
-    for i, _kind in enumerate(cfg.tail_pattern):
+    for i, kind in enumerate(cfg.tail_pattern):
         c = caches["tail"][i] if caches is not None else None
-        x = block_forward(cfg, params["tail"][i], x, mode=mode, cache=c,
-                          positions=positions)
+        x = block_forward(cfg, kind, params["tail"][i], x, mode=mode,
+                          cache=c, positions=positions)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 
-def embed_tokens(embed_params, tokens):
-    return embed_params["tok"][tokens]
+def embed_tokens(cfg, embed_params, tokens):
+    x = embed_params["tok"][tokens]
+    if cfg.scale_embeddings:
+        # the scale is rounded to the activation dtype first, as the JAX
+        # package computes it (sqrt(2560) is 50.5 in bf16)
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype,
+                                        device=x.device))
+    return x
 
 
 def lm_logits(cfg, embed_params, x):

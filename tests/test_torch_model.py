@@ -27,6 +27,7 @@ from repro_torch.models.layers import tree_flatten, tree_leaves
 
 torch.set_num_threads(1)
 DENSE = ["qwen2-7b", "qwen2-1.5b", "tinyllama-1.1b"]
+RECURRENT = ["mamba2-780m", "recurrentgemma-2b"]
 B, S = 2, 12
 
 
@@ -36,7 +37,7 @@ def _rel_err(got, want):
     return float(np.abs(g - w).max() / (np.abs(w).max() + 1e-9))
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + RECURRENT)
 def both(request):
     jcfg = jax_reduced(jax_get_config(request.param))
     cfg = reduced(get_config(request.param))
@@ -93,7 +94,7 @@ def test_decode_matches_forward():
         < 0.05 * float(full.abs().max())
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 @pytest.mark.parametrize("tokens", [128, 2048])
 def test_arena_bytes_match_jax(arch, tokens):
     for cut in (lambda c: c, reduced):
@@ -106,9 +107,16 @@ def test_arena_bytes_match_jax(arch, tokens):
     if arch == "qwen2-7b" and tokens == 2048:   # 28 x 2 x 4 x 128 x 2 B
         full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
         assert full.bytes_per_partition == 57_344 * 2048 == 117_440_512
+    if arch == "mamba2-780m":   # 48 x (48 x 64 x 128 + 3 x (3072 + 256)) x 2
+        full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
+        assert full.bytes_per_partition == 38_707_200
+    if arch == "recurrentgemma-2b":
+        full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
+        assert full.bytes_per_partition == {128: 1_417_216,
+                                            2048: 17_145_856}[tokens]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_param_specs_match_jax(arch):
     """Full-width spec trees (no allocation): same leaves in the same
     tree-flatten order, same shapes, same dtypes and init scales."""
@@ -127,7 +135,7 @@ def test_param_specs_match_jax(arch):
         jax_get_config(arch).param_count()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "gemma2-9b",
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "gemma2-9b",
                                   "mixtral-8x7b", "qwen2-vl-72b"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError):
