@@ -10,12 +10,17 @@ paged ``ServeEngine`` through the same bursty trace and a scripted unplug
 that must migrate blocks, then two full-width replicas on one host budget
 through the cluster layer (``launch/cluster_demo.py``): a scripted steal
 per mode, the demo's two-replica trace under the sync and the async
-broker, and two hosts whose late tail restores remotely; then the
-recurrent families, full-width mamba2-780m and recurrentgemma-2b one after
-the other: the snapshot kernels over their cache trees,
-``partition_attention`` at recurrentgemma's MQA shapes, decode against the
-train forward, and the hotmem engine's snapshot, paged copy-on-write and
-bursty schedules; it checks what comes out.
+broker, and two hosts whose late tail restores remotely; then the other
+decoder families one after the other, each freed before the next:
+full-width mamba2-780m, recurrentgemma-2b, gemma2-9b and mixtral-8x7b (16
+of its 32 layers: the whole model does not fit the card) through the
+snapshot kernels over their cache trees, ``partition_attention`` at their
+decode shapes (logit cap and query scale included), decode against the
+train forward (gemma2's forward on 8192 tokens through the chunked
+attention path, held against the plain path at one layer's shapes too),
+and the hotmem engine's snapshot, paged copy-on-write and bursty
+schedules; and qwen2-vl-72b (8 of 80 layers) at the model level, with
+M-RoPE positions and the vision stub; it checks what comes out.
 
     python3 chip_smoke.py
 
@@ -29,6 +34,7 @@ last three lines are the kernel table, the card's name and power limit as
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import hashlib
 import json
@@ -58,7 +64,10 @@ from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
                                              demo_requests, summarize)
 from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving.engine import (ServeEngine,  # noqa: E402
                                         assemble_pages)
@@ -308,16 +317,32 @@ def phase_attention(cfg, gen) -> dict:
     return row
 
 
+def _attention_windows(cfg) -> list[int]:
+    """The windows of the model's attention blocks, in block order, each
+    once (``_window_for``: the local window, 0 for global blocks, the
+    sliding window of ``attn`` blocks)."""
+    kinds = [k for k in cfg.block_pattern + cfg.tail_pattern
+             if k in transformer.ATTN_KINDS]
+    return list(dict.fromkeys(transformer._window_for(cfg, k)
+                              for k in kinds))
+
+
 def phase_attention_at(cfg, gen, tag: str) -> dict:
-    """``partition_attention`` at a model's own decode shapes (the local
-    blocks' ring of ``cfg.local_window`` slots, P = 8): positions below T,
-    rings wrapped past T, a window of 512 over the ring and the model's
-    window, each against the plain version; the engine's call (the model's
-    window, positions below T) timed against its byte bound and one SDPA
-    call."""
+    """``partition_attention`` at a model's own decode shapes: P = 8 rows of
+    the arena's ring, T = ``min(PARTITION_TOKENS, window)`` slots (the
+    engine's caches hold 2048 tokens whatever the window), the model's
+    logit cap and query scale.  Positions below T, rings wrapped past T and
+    a window of 512, then each window of the model's blocks over the ring
+    and below T, each against the plain version; the engine's call (the
+    first block's window, positions below T) timed against its byte bound
+    and one SDPA call, and the other windows' calls timed in
+    ``more_shapes``."""
     p, hkv, dh = N_PARTITIONS, cfg.num_kv_heads, cfg.head_dim
-    t = window = cfg.local_window
+    windows = _attention_windows(cfg)
+    t = PARTITION_TOKENS
     g = cfg.num_heads // hkv
+    scale = cfg.query_scale or dh ** -0.5
+    cap = cfg.attn_logit_softcap
     bf16 = torch.bfloat16
     q = randn((p, hkv, g, dh), bf16, gen)
     k = randn((p, t, hkv, dh), bf16, gen)
@@ -326,12 +351,16 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
                        dtype=torch.int32)
     ring = torch.randint(t, 3 * t, (p,), generator=gen, device=DEV,
                          dtype=torch.int32)
+    model = {"logit_cap": cap, "scale": scale}
     cases = [("below_T", lo, {}), ("ring", ring, {}),
-             ("ring_window_512", ring, {"window": 512}),
-             (f"ring_window_{window}", ring, {"window": window}),
-             (f"below_T_window_{window}", lo, {"window": window})]
+             ("ring_window_512", ring, {"window": 512})]
+    for w in windows:
+        if w:
+            cases += [(f"ring_window_{w}", ring, {"window": w}),
+                      (f"below_T_window_{w}", lo, {"window": w})]
     errs, limits = {}, {}
     for name, pos, kw in cases:
+        kw = {**kw, **model}
         ok, err, limit = attention_close(
             ops.partition_attention(q, k, v, pos, **kw),
             ref.partition_attention(q, k, v, pos, **kw))
@@ -339,35 +368,48 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
                   f"{TOL_BF16} and {limit}")
         errs[name], limits[name] = err, limit
 
-    scale = cfg.query_scale or dh ** -0.5
-    sdpa = _sdpa_call(q, k, v, lo, scale, window)
-    _, sdpa_err = allclose(
-        sdpa().reshape(p, hkv, g, dh),
-        ref.partition_attention(q, k, v, lo, window=window, scale=scale),
-        TOL_BF16)
-
-    valid = _valid_slots(lo, t, window)
     item = q.element_size()
-    nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p
-    flops = 4.0 * valid * hkv * g * dh
-    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
-    kernel = lambda: ops.partition_attention(  # noqa: E731
-        q, k, v, lo, window=window, scale=scale)
-    plain = lambda: ref.partition_attention(  # noqa: E731
-        q, k, v, lo, window=window, scale=scale)
+    timed = []
+    for window in windows:
+        kw = {"window": window, **model}
+        # SDPA has no logit cap: under a cap no single PyTorch call computes
+        # the function (library_ms null), and SDPA's time on the same
+        # inputs without the cap is kept beside it for scale
+        sdpa = _sdpa_call(q, k, v, lo, scale, window)
+        _, sdpa_err = allclose(
+            sdpa().reshape(p, hkv, g, dh),
+            ref.partition_attention(q, k, v, lo, window=window, scale=scale),
+            TOL_BF16)
+        sdpa_ms = median_ms(sdpa)
+        valid = _valid_slots(lo, t, window)
+        nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p
+        flops = 4.0 * valid * hkv * g * dh
+        bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+        timed.append({
+            "window": window, "valid_slots": valid, "bytes": nbytes,
+            "flops": flops, "sdpa_max_abs_err": sdpa_err,
+            "ms": median_ms(partial(ops.partition_attention, q, k, v, lo,
+                                    **kw)),
+            "plain_ms": median_ms(partial(ref.partition_attention, q, k, v,
+                                          lo, **kw)),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "library_ms": None if cap else sdpa_ms,
+            "sdpa_without_cap_ms": sdpa_ms})
+    main = timed[0]
     row = {"name": f"partition_attention@{tag}", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
            "replaces": "src/repro/kernels/partition_attention.py:70",
-           "path": "recurrent",
-           "max_abs_err": errs[f"below_T_window_{window}"],
-           "ms": median_ms(kernel), "plain_ms": median_ms(plain),
-           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-           "library_ms": median_ms(sdpa)}
-    emit({"phase": "kernel", "config": cfg.name,
-          "shape": [p, t, hkv, g, dh], "dtype": "bf16", "window": window,
-          "splits": splits_for(q, t), "valid_slots": valid,
-          "bytes": nbytes, "flops": flops, "errors": errs,
-          "tight_limits": limits, "sdpa_max_abs_err": sdpa_err, **row})
+           "path": "family",
+           "max_abs_err": max(errs.values()),
+           **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+    emit({"phase": "kernel", "config": cfg.name, **_cut(cfg),
+          "shape": [p, t, hkv, g, dh], "dtype": "bf16", "windows": windows,
+          "logit_cap": cap, "scale": scale, "splits": splits_for(q, t),
+          "errors": errs, "tight_limits": limits,
+          **{k: main[k] for k in ("window", "valid_slots", "bytes", "flops",
+                                  "sdpa_max_abs_err", "sdpa_without_cap_ms")},
+          "more_shapes": timed[1:], **row})
     return row
 
 
@@ -721,7 +763,7 @@ def phase_snapshot(cfg, gen, tag: str = "") -> list[dict]:
         {"name": "snapshot_capture" + suffix, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:123",
-         "path": "recurrent" if tag else "engine",
+         "path": "family" if tag else "engine",
          "max_abs_err": 0.0, "ms": median_ms(capture),
          "plain_ms": median_ms(plain_capture),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
@@ -729,7 +771,7 @@ def phase_snapshot(cfg, gen, tag: str = "") -> list[dict]:
         {"name": "snapshot_restore" + suffix, "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kv_snapshot.cu",
          "replaces": "src/repro/kernels/kv_snapshot.py:160",
-         "path": "recurrent" if tag else "engine",
+         "path": "family" if tag else "engine",
          "max_abs_err": 0.0, "ms": median_ms(restore),
          "plain_ms": median_ms(plain_restore),
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
@@ -749,7 +791,7 @@ def phase_snapshot(cfg, gen, tag: str = "") -> list[dict]:
         out[0]["ms_sync_staged_rows"] = median_ms(sync_rows)
     unit, desc = kv_snapshot.copy_plan(leaves, blob, layout)
     for row in out:
-        emit({"phase": "kernel", "config": cfg.name, "rows": 1,
+        emit({"phase": "kernel", "config": cfg.name, **_cut(cfg), "rows": 1,
               "row_bytes": row_bytes, "bytes": nbytes, "leaves": [
                   list(x.shape) for x in leaves], "batch_axes": axes,
               "copy_unit": unit, "slice_bytes": [d * unit
@@ -1488,34 +1530,182 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the recurrent families — full-width mamba2-780m and
-# recurrentgemma-2b through the hotmem engine
+# Phase 5: the other decoder families — full-width mamba2-780m,
+# recurrentgemma-2b, gemma2-9b and mixtral-8x7b (16 of 32 layers) through
+# the hotmem engine, one after the other; qwen2-vl-72b (8 of 80 layers) at
+# the model level
 # ---------------------------------------------------------------------------
 
-RECURRENT = {"mamba2-780m": 38_707_200,        # bytes of one 2048-token row
-             "recurrentgemma-2b": 17_145_856}
+# bytes of one 2048-token row, at the depth the model runs here
+FAMILIES = {"mamba2-780m": 38_707_200, "recurrentgemma-2b": 17_145_856,
+            "gemma2-9b": 704_643_072, "mixtral-8x7b": 134_217_728}
+VLM = "qwen2-vl-72b"
+# depth cuts: the whole model's bf16 weights do not fit one 80 GB card
+# (mixtral 93.4 GB at 32 layers, qwen2-vl 145 GB at 80); widths are kept
+DEPTH = {"mixtral-8x7b": 16, VLM: 8}
+# decode against the train forward: (tokens, rows, cache length) where
+# not (256, 1, PARTITION_TOKENS).  gemma2's forward at FLASH_SEQ tokens
+# takes the chunked attention path (its prefill of one token less does
+# not).  mixtral compares row 0 of four: a 4 x 256 batch gives each expert
+# a capacity of 320 slots and row 0's 256 tokens put at most one slot each
+# in an expert, so none of row 0 is dropped in the forward or the prefill
+# (the other rows' drops are the reference's rule and are counted), and
+# its decode computes the same function
+DECODE_VS_FORWARD = {"gemma2-9b": (attn_mod.FLASH_SEQ, 1, attn_mod.FLASH_SEQ),
+                     "mixtral-8x7b": (256, 4, PARTITION_TOKENS)}
+TOL_MOE = 8e-2      # the reference's MoE bound (test_decode_consistency.py)
 
 
-def _decode_vs_forward(cfg, params) -> float:
-    """Prefill 255 tokens, decode the 256th, against the train forward on
-    all 256 (one SSD chunk): relative error of the last logits, under 5e-2
-    as in ``tests/test_decode_consistency.py``."""
+def family_config(arch: str):
+    """The published config, cut in depth where its weights do not fit."""
+    cfg = get_config(arch)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=DEPTH[arch])
+    return cfg
+
+
+def _cut(cfg) -> dict:
+    """The ``reduced`` field of a model's lines: its depth cut, if any."""
+    full = get_config(cfg.name)
+    if cfg.num_layers == full.num_layers:
+        return {}
+    return {"reduced": {"num_layers": [full.num_layers, cfg.num_layers]}}
+
+
+def _attention_layers(cfg) -> int:
+    return sum(k in transformer.ATTN_KINDS
+               for k in cfg.block_pattern) * cfg.n_groups \
+        + sum(k in transformer.ATTN_KINDS for k in cfg.tail_pattern)
+
+
+def _tol(cfg) -> float:
+    return TOL_MOE if cfg.num_experts else 5e-2
+
+
+class _Spy:
+    """Counts ``_chunked_attention`` calls and, on an MoE model, the
+    (token, expert) slots dropped over capacity, per row and token, while
+    it is entered; puts both functions back on exit."""
+
+    def __init__(self, cfg):
+        self.cfg, self.chunked, self.dropped = cfg, 0, []
+
+    def __enter__(self):
+        self._chunked, self._moe = attn_mod._chunked_attention, \
+            moe_mod.moe_block
+
+        def chunked(*a):
+            self.chunked += 1
+            return self._chunked(*a)
+
+        def moe_block(cfg, p, x):
+            xt = x.reshape(-1, x.shape[-1])
+            _w, top_e = moe_mod.route(cfg, p, xt)
+            _e, _r, keep = moe_mod.dispatch_slots(
+                cfg, top_e, moe_mod.capacity(cfg, xt.shape[0]))
+            self.dropped.append((~keep).view(x.shape[0], x.shape[1], -1)
+                                .sum(-1))
+            return self._moe(cfg, p, x)
+        attn_mod._chunked_attention, moe_mod.moe_block = chunked, moe_block
+        return self
+
+    def __exit__(self, *exc):
+        attn_mod._chunked_attention, moe_mod.moe_block = self._chunked, \
+            self._moe
+
+    def drops(self) -> torch.Tensor:
+        """Dropped slots per (row, token), summed over the layers."""
+        return sum(self.dropped) if self.dropped else torch.zeros(1)
+
+
+def _decode_vs_forward(cfg, params, n=256, rows=1,
+                       cache_len=PARTITION_TOKENS, extra=None) -> dict:
+    """Prefill n - 1 tokens, decode token n - 1, against the train forward
+    on all n (one SSD chunk at 256): relative error of row 0's last logits,
+    under 5e-2 as in ``tests/test_decode_consistency.py`` (MoE: 8e-2, the
+    same file's bound).  ``extra`` adds to both batches (the vision stub;
+    positions, cut to n - 1 for the prefill).  Random tokens, seed 1."""
     g = torch.Generator(device=DEV)
     g.manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g,
+    toks = torch.randint(0, cfg.vocab_size, (rows, n), generator=g,
                          device=DEV, dtype=torch.int32)
-    full = M.forward_train(cfg, params, {"tokens": toks})[:, 255].float()
-    caches = M.init_caches(cfg, 1, PARTITION_TOKENS, device=DEV)
-    _, caches = M.prefill(cfg, params, {"tokens": toks[:, :255]}, caches)
-    lg, _ = M.decode_step(cfg, params, toks[:, 255:],
-                          torch.tensor([255], dtype=torch.int32, device=DEV),
-                          caches)
-    lg = lg.float()
+    extra = extra or {}
+    pre = {k: v[..., :n - 1] if k == "positions" else v
+           for k, v in extra.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Spy(cfg) as fwd:
+        full = M.forward_train(cfg, params, {"tokens": toks, **extra})[
+            0, n - 1].float()
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = M.init_caches(cfg, rows, cache_len, device=DEV)
+    with _Spy(cfg) as pf:
+        _, caches = M.prefill(cfg, params, {"tokens": toks[:, :n - 1],
+                                            **pre}, caches)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lg, _ = M.decode_step(cfg, params, toks[:, n - 1:],
+                          torch.full((rows,), n - 1, dtype=torch.int32,
+                                     device=DEV), caches)
+    lg = lg[0].float()
     err = float((full - lg).abs().max()) / float(full.abs().max())
-    check(tuple(lg.shape) == (1, full.shape[-1])
-          and bool(torch.isfinite(lg).all()) and err < 5e-2,
-          f"{cfg.name}: decode vs forward relative error {err} < 5e-2")
-    return err
+    tol = _tol(cfg)
+    check(tuple(lg.shape) == tuple(full.shape)
+          and bool(torch.isfinite(lg).all()) and err < tol,
+          f"{cfg.name}: decode vs forward relative error {err} < {tol}")
+    flash = n >= attn_mod.FLASH_SEQ
+    check(fwd.chunked == (_attention_layers(cfg) if flash else 0)
+          and pf.chunked == 0,
+          f"{cfg.name}: the forward on {n} tokens took the chunked path in "
+          f"{fwd.chunked} layers, the prefill in {pf.chunked}")
+    out = {"tokens": n, "rows": rows, "cache_len": cache_len,
+           "decode_vs_forward_rel_err": err, "tolerance": tol,
+           "forward_s": t1 - t0, "prefill_s": t2 - t1,
+           "chunked_layers_forward": fwd.chunked}
+    if cfg.num_experts:
+        drops = fwd.drops()
+        check(not drops[0].any() and not pf.drops()[0].any(),
+              f"{cfg.name}: no slot of row 0 dropped in the forward or the "
+              f"prefill")
+        out.update(dropped_slots_forward=int(drops.sum()),
+                   dropped_slots_row0=int(drops[0].sum()),
+                   slots_forward=len(fwd.dropped) * rows * n
+                   * cfg.num_experts_per_tok)
+    return out
+
+
+def phase_chunked(cfg, gen) -> dict:
+    """``_chunked_attention`` against ``_plain_attention`` at one layer's
+    full shapes (S = FLASH_SEQ tokens of one row, the model's heads, head
+    dim, logit cap and query scale; q scaled by 8 so the cap bends the
+    scores), for each window of its blocks, and the time of each (median
+    of 5 behind the L2 flush)."""
+    s, hkv, dh = attn_mod.FLASH_SEQ, cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    scale = cfg.query_scale or dh ** -0.5
+    cap = cfg.attn_logit_softcap
+    bf16 = torch.bfloat16
+    q = randn((1, s, hkv, g, dh), bf16, gen) * 8
+    k = randn((1, s, hkv, dh), bf16, gen)
+    v = randn((1, s, hkv, dh), bf16, gen)
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)[None]
+    out = {"shape": [1, s, hkv, g, dh], "logit_cap": cap, "scale": scale,
+           "q_chunk": attn_mod.Q_CHUNK, "kv_chunk": attn_mod.KV_CHUNK}
+    for w in _attention_windows(cfg):
+        args = (q, k, v, pos, pos, w, scale, cap)
+        ok, err, limit = attention_close(attn_mod._chunked_attention(*args),
+                                         attn_mod._plain_attention(*args))
+        check(ok, f"{cfg.name}: chunked vs plain attention, window {w}: "
+                  f"error {err} within {TOL_BF16} and {limit}")
+        out[f"window_{w}"] = {
+            "max_abs_err": err, "tight_limit": limit,
+            "chunked_ms": median_ms(partial(attn_mod._chunked_attention,
+                                            *args), runs=5),
+            "plain_ms": median_ms(partial(attn_mod._plain_attention, *args),
+                                  runs=5)}
+    emit({"phase": "chunked_attention", "config": cfg.name, **out})
+    return out
 
 
 def _requested() -> int:
@@ -1548,24 +1738,26 @@ def _watch_unplugs(eng, drops: list) -> None:
     eng._sync_rows = measured
 
 
-def _recurrent_engines(cfg, params, gen) -> tuple[dict, dict]:
+def _family_engines(cfg, params, gen) -> tuple[dict, dict]:
     """The hotmem schedules on one model: (a) cold, warm, capture,
     restore, restore; (b) paged copy-on-write with 2 MiB pages, a local
     remap and a fresh replica; (c) the bursty trace up and down the
     ladder.  Every engine is made inside the counted run, so each one's
-    warm-up decode step counts."""
+    warm-up decode step counts.  The recurrent families must refuse the
+    vanilla engine, as the reference does."""
     spec = ArenaSpec.from_model(cfg, partition_tokens=PARTITION_TOKENS,
                                 n_partitions=N_PARTITIONS,
                                 block_tokens=BLOCK_TOKENS)
-    check(spec.bytes_per_partition == RECURRENT[cfg.name],
+    check(spec.bytes_per_partition == FAMILIES[cfg.name],
           f"{cfg.name}: bytes per partition {spec.bytes_per_partition}")
     refused = ""
-    try:
-        ServeEngine(cfg, params, spec, mode="vanilla")
-    except AssertionError as e:
-        refused = str(e)
-    check("token-extensive" in refused,
-          f"{cfg.name}: the vanilla engine is refused ({refused!r})")
+    if cfg.family in ("ssm", "hybrid"):
+        try:
+            ServeEngine(cfg, params, spec, mode="vanilla")
+        except AssertionError as e:
+            refused = str(e)
+        check("token-extensive" in refused,
+              f"{cfg.name}: the vanilla engine is refused ({refused!r})")
     bpp = spec.blocks_per_partition
     probe = ClusterProbe(spec, gen)
     drops = []
@@ -1620,11 +1812,9 @@ def _recurrent_engines(cfg, params, gen) -> tuple[dict, dict]:
     decode_steps = sum(m["decode_steps"] for m in metrics)
     captures = sum(m["snapshots_taken"] for m in metrics)
     restores = sum(m["restore_starts"] for m in metrics)
-    attn_layers = sum(k in ("attn", "local", "global")
-                      for k in cfg.block_pattern) * cfg.n_groups \
-        + sum(k in ("attn", "local", "global") for k in cfg.tail_pattern)
+    attn_layers = _attention_layers(cfg)
     cow_ev = [e for e in cow_a.events if e.kind == "restore"]
-    pages = -(-RECURRENT[cfg.name] // PAGE_BYTES)
+    pages = -(-FAMILIES[cfg.name] // PAGE_BYTES)
     row_bytes = kv_snapshot.expected_row_bytes(cfg, PARTITION_TOKENS)
     snap_ev = [e for e in snap.events if e.kind == "snapshot"]
     checks = {
@@ -1677,7 +1867,7 @@ def _recurrent_engines(cfg, params, gen) -> tuple[dict, dict]:
     wall_stats = {k: {"n": len(v), "median": float(np.median(v)),
                       "min": min(v), "max": max(v)}
                   for k, v in walls.items() if v}
-    emit({"phase": "recurrent_engine", "config": cfg.name,
+    emit({"phase": "family_engine", "config": cfg.name, **_cut(cfg),
           "run_seconds": run_s, "bytes_per_partition":
           spec.bytes_per_partition, "pages_per_row": pages,
           "attention_layers": attn_layers, "decode_steps": decode_steps,
@@ -1701,17 +1891,21 @@ def _recurrent_engines(cfg, params, gen) -> tuple[dict, dict]:
     return launches, summary
 
 
-def phase_recurrent(arch, gen) -> tuple[list[dict], dict]:
-    """One recurrent model at full width, then freed: (a) the snapshot
-    kernels over its cache tree and, where it has local attention,
-    ``partition_attention`` at its shapes; (b) decode against the train
-    forward; (c) the hotmem engine's schedules; (d) where a decode step's
-    time goes."""
-    cfg = get_config(arch)
+def phase_family(arch, gen) -> tuple[list[dict], dict]:
+    """One model at full width (cut in depth where it does not fit), then
+    freed: (a) the snapshot kernels over its cache tree and, where it has
+    attention blocks, ``partition_attention`` at its shapes (and, for a
+    model whose checks prefill FLASH_SEQ tokens, the chunked attention at
+    one layer's shapes); (b) decode against the train forward; (c) the
+    hotmem engine's schedules; (d) where a decode step's time goes."""
+    cfg = family_config(arch)
     t0 = time.perf_counter()
     rows = phase_snapshot(cfg, gen, tag=arch)
-    if "local" in cfg.block_pattern:
+    if _attention_layers(cfg):
         rows.append(phase_attention_at(cfg, gen, arch))
+    n, n_rows, cache_len = DECODE_VS_FORWARD.get(arch, (256, 1,
+                                                        PARTITION_TOKENS))
+    chunked = phase_chunked(cfg, gen) if n >= attn_mod.FLASH_SEQ else None
     gc.collect()
     torch.cuda.empty_cache()
     params = M.init_params(cfg, 0, device=DEV)
@@ -1719,21 +1913,75 @@ def phase_recurrent(arch, gen) -> tuple[list[dict], dict]:
     check(n_params == cfg.param_count(),
           f"{arch}: {n_params} parameters, the spec says "
           f"{cfg.param_count()}")
-    err = _decode_vs_forward(cfg, params)
-    emit({"phase": "recurrent_model", "config": arch, "params": n_params,
-          "param_bytes": sum(x.numel() * x.element_size()
-                             for x in tree_leaves(params)),
-          "decode_vs_forward_rel_err": err})
-    launches, summary = _recurrent_engines(cfg, params, gen)
+    model = _decode_vs_forward(cfg, params, n, n_rows, cache_len)
+    emit({"phase": "family_model", "config": arch, **_cut(cfg),
+          "params": n_params, "param_bytes": sum(
+              x.numel() * x.element_size() for x in tree_leaves(params)),
+          **model})
+    launches, summary = _family_engines(cfg, params, gen)
     for row in rows:
         row["launches"] = launches[row["name"].split("@")[0]]
     summary.update(phase_profile(cfg, params))
-    summary["decode_vs_forward_rel_err"] = err
+    summary["model"] = model
+    if chunked:
+        summary["chunked_attention"] = chunked
     summary["seconds"] = time.perf_counter() - t0
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return rows, summary
+
+
+def _vision_inputs(cfg, rows: int, n: int, device):
+    """Stub patch embeddings for the first ``vision_stub_tokens`` tokens
+    (random, seed 1, drawn on the CPU so that every device gets the same)
+    and M-RoPE positions (3, rows, n): section 0 is the token index (the
+    mask and the cache slot read it); for the patches, sections 1 and 2
+    are the row and the column of a square grid; for the text tokens all
+    three are the index, as decode's (B,) positions broadcast to (3, B)."""
+    patches = cfg.vision_stub_tokens
+    side = int(patches ** 0.5)
+    check(side * side == patches, f"{patches} patches make a square grid")
+    g = torch.Generator()
+    g.manual_seed(1)
+    vis = torch.randn((rows, patches, cfg.d_model), generator=g).to(
+        torch.bfloat16)
+    pos = torch.arange(n, dtype=torch.int32).expand(3, rows, n).clone()
+    grid = torch.arange(patches, dtype=torch.int32)
+    pos[1, :, :patches] = grid // side
+    pos[2, :, :patches] = grid % side
+    return vis.to(device), pos.to(device)
+
+
+def phase_vlm() -> dict:
+    """qwen2-vl-72b at full width, 8 of 80 layers, at the model level (the
+    engine passes no vision input, so its engine path is qwen2's with
+    biases): 512 tokens whose first ``vision_stub_tokens`` (256) are stub
+    patch embeddings with M-RoPE positions on a 16 x 16 grid
+    (``_vision_inputs``).  Decode of token 511 against the train forward,
+    under 5e-2."""
+    cfg = family_config(VLM)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device=DEV)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"{VLM}: {n_params} parameters, the spec says "
+          f"{cfg.param_count()}")
+    n = 512
+    vis, pos = _vision_inputs(cfg, 1, n, DEV)
+    model = _decode_vs_forward(cfg, params, n,
+                               extra={"vision_embeds": vis,
+                                      "positions": pos})
+    side = int(cfg.vision_stub_tokens ** 0.5)
+    emit({"phase": "family_model", "config": VLM, **_cut(cfg),
+          "params": n_params, "param_bytes": sum(
+              x.numel() * x.element_size() for x in tree_leaves(params)),
+          "vision_stub_tokens": cfg.vision_stub_tokens, "mrope_sections":
+          list(cfg.mrope_sections), "patch_grid": [side, side], **model})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**model, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -1776,7 +2024,8 @@ def phase_profile(cfg, params) -> dict:
                       and e.self_device_time_total > 0), reverse=True)
     busy_us = sum(k[0] for k in kernels)
     attn_us = sum(k[0] for k in kernels if "partition_attention" in k[2])
-    emit({"phase": "profile", "config": cfg.name, "rows": N_PARTITIONS,
+    emit({"phase": "profile", "config": cfg.name, **_cut(cfg),
+          "rows": N_PARTITIONS,
           "position": PARTITION_TOKENS // 2,
           "step_ms_median": float(np.median(walls)) * 1e3,
           "step_ms_min": min(walls) * 1e3,
@@ -1799,10 +2048,12 @@ def phase_profile(cfg, params) -> dict:
 
 
 def phase_reference(arch: str) -> float:
-    """The reduced config with the same weights: prefill + four decode
-    steps with the kernels on the card against the plain versions on the
-    CPU.  Tolerance 2e-2 of the largest logit: bf16 activations round at
-    other places in cuBLAS and in PyTorch's CPU kernels."""
+    """The reduced config with the same weights: prefill (qwen2-vl with its
+    vision stub and M-RoPE grid positions) + four decode steps with the
+    kernels on the card against the plain versions on the CPU.  Tolerance 2e-2 of the largest logit: bf16 activations round at
+    other places in cuBLAS and in PyTorch's CPU kernels; on an MoE model
+    8e-2, the reference's MoE bound, as in the CPU tests: that rounding can
+    flip a top-k choice near a tie."""
     cfg = reduced(get_config(arch))
     params_cpu = M.init_params(cfg, 0, device="cpu")
     params = tree_map(lambda x: x.to(DEV), params_cpu)
@@ -1811,8 +2062,11 @@ def phase_reference(arch: str) -> float:
     out = {}
     for dev, p in (("cpu", params_cpu), ("cuda", params)):
         caches = M.init_caches(cfg, 2, 32, device=dev)
-        lg, caches = M.prefill(cfg, p, {"tokens": toks[:, :12].to(dev)},
-                               caches)
+        batch = {"tokens": toks[:, :12].to(dev)}
+        if cfg.vision_stub_tokens:
+            batch["vision_embeds"], batch["positions"] = _vision_inputs(
+                cfg, 2, 12, dev)
+        lg, caches = M.prefill(cfg, p, batch, caches)
         logits = [lg]
         for i in range(12, 16):
             lg, caches = M.decode_step(
@@ -1822,10 +2076,11 @@ def phase_reference(arch: str) -> float:
         out[dev] = torch.stack(logits).float().cpu()
     err = float((out["cuda"] - out["cpu"]).abs().max())
     scale = float(out["cpu"].abs().max())
+    tol = TOL_MOE if cfg.num_experts else 2e-2
     emit({"phase": "reference", "config": cfg.name, "max_abs_err": err,
-          "max_abs_logit": scale})
-    check(bool(torch.isfinite(out["cuda"]).all()) and err <= 2e-2 * scale,
-          f"{cfg.name}: card vs CPU logits: {err} > 2e-2 * {scale}")
+          "max_abs_logit": scale, "tolerance": tol})
+    check(bool(torch.isfinite(out["cuda"]).all()) and err <= tol * scale,
+          f"{cfg.name}: card vs CPU logits: {err} > {tol} * {scale}")
     return err
 
 
@@ -1843,15 +2098,28 @@ def main() -> None:
     rows = [phase_attention(cfg, gen), phase_paged_attention(cfg, gen),
             phase_kv_compact(cfg, gen)] + phase_snapshot(cfg, gen)
     torch.cuda.empty_cache()
-    launches, params, summary = phase_engine(cfg, gen)
-    cluster_launches, summary["cluster"] = phase_cluster(cfg, params, gen)
-    for arch in RECURRENT:
-        more, summary[arch] = phase_recurrent(arch, gen)
-        rows += more
-    summary.update(phase_profile(cfg, params))
+    seconds = {"kernels": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+    launches, params, summary = timed("engine", phase_engine, cfg, gen)
+    cluster_launches, summary["cluster"] = timed("cluster", phase_cluster,
+                                                 cfg, params, gen)
+    summary.update(timed("profile", phase_profile, cfg, params))
     del params
-    summary["reference_max_abs_err"] = {
-        arch: phase_reference(arch) for arch in (ARCH, *RECURRENT)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in FAMILIES:
+        more, summary[arch] = timed(arch, phase_family, arch, gen)
+        rows += more
+    summary[VLM] = timed(VLM, phase_vlm)
+    summary["reference_max_abs_err"] = timed("reference", lambda: {
+        arch: phase_reference(arch)
+        for arch in (ARCH, *FAMILIES, VLM)})
+    summary["phase_seconds"] = seconds
     for row in rows:
         # each kernel's count from the runs of the paths that drive it: the
         # engine and cluster runs, each counted from 0, or the
@@ -1861,7 +2129,7 @@ def main() -> None:
                 + cluster_launches[row["name"]]
             check(cluster_launches[row["name"]] > 0,
                   f"{row['name']} ran on the cluster path")
-        elif row["path"] == "recurrent":
+        elif row["path"] == "family":
             pass            # counted on its model's engine run
         else:
             row["launches"] = row["path_launches"][row["name"]]

@@ -6,7 +6,12 @@
 
 Port of ``repro.launch.serve``: runs the ServeEngine against a bursty
 synthetic trace and prints the reclaim/latency metrics the paper's
-Figs. 8–10 report.  It runs on the CUDA device unless ``--device cpu``.
+Figs. 8–10 report, with the number of requests submitted.  Any
+decoder-only config serves: dense (qwen2, tinyllama, gemma2), moe
+(mixtral, dbrx), vlm (qwen2-vl, text only: the engine passes no vision
+input), ssm (mamba2) and hybrid (recurrentgemma); ``--mode vanilla`` is
+refused on the last two, as in the JAX engine.  It runs on the CUDA device
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -40,12 +45,16 @@ def serve(arch: str, *, mode: str = "hotmem", duration: float = 20.0,
     eng = ServeEngine(cfg, params, spec, mode=mode, keep_alive=keep_alive,
                       seed=seed)
     metrics = eng.run(reqs, max_virtual_s=duration * 40)
+    metrics["submitted"] = len(reqs)
     return eng, metrics
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a decoder-only config: qwen2-7b, qwen2-1.5b, "
+                    "tinyllama-1.1b, gemma2-9b, mixtral-8x7b, dbrx-132b, "
+                    "qwen2-vl-72b, mamba2-780m or recurrentgemma-2b")
     ap.add_argument("--mode", default="hotmem",
                     choices=["hotmem", "vanilla", "static"])
     ap.add_argument("--duration", type=float, default=20.0)

@@ -1,5 +1,5 @@
-"""Attention for the dense family: GQA, RoPE, optional sliding window and
-softcap, ring KV caches.
+"""Attention: GQA, RoPE/M-RoPE, full/sliding-window, softcap, ring KV
+caches.
 
 Port of ``repro.models.attention``.  Three modes share one entry point:
   * ``train``   — no cache, causal (optionally windowed) mask.
@@ -12,8 +12,10 @@ cache tensors, decode writes the new K/V slot into them) and the same cache
 dict is returned: the engine owns one copy of the arena and never pays a
 second one per step.  Decode attention runs through
 ``kernels.ops.partition_attention`` — the hand-written kernel on the card,
-its plain version on the CPU.  Prefill at or above ``FLASH_SEQ`` (the JAX
-package's chunked online-softmax path) is not ported yet and raises.
+its plain version on the CPU.  Train and prefill at or above ``FLASH_SEQ``
+tokens take ``_chunked_attention``, an online softmax over
+``Q_CHUNK`` x ``KV_CHUNK`` tiles that never builds an S x S score matrix
+(plain torch, as the JAX package's is pure jnp).
 """
 from __future__ import annotations
 
@@ -23,7 +25,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, f32, softcap)
 
+# chunked online-softmax attention at/above this length; the chunk sizes are
+# read at call time, so a test can patch them
 FLASH_SEQ = 8192
+Q_CHUNK = 512
+KV_CHUNK = 1024
 NEG_INF = -2.0 ** 30
 
 
@@ -44,53 +50,96 @@ def _split_heads(x, n, d):
     return x.reshape(x.shape[:-1] + (n, d))
 
 
-def _plain_attention(q, k, v, qpos, kpos, window, scale, cap):
-    """q (B,S,K,G,D) x k/v (B,T,K,D) -> (B,S,K,G,D); scores in f32."""
+def _scores(q, k, scale, cap):
+    """q (B,S,K,G,D) x k (B,T,K,D) -> (B,K,G,S,T) f32, softcapped."""
     s = torch.einsum("bskgd,btkd->bkgst", q.to(f32), k.to(f32)) * scale
-    s = softcap(s, cap)
+    return softcap(s, cap)
+
+
+def _mask(qpos, kpos, window):
+    """(B,S,T): key at or before the query, and inside the window."""
     mask = kpos[:, None, :] <= qpos[:, :, None]            # causal
     if window:
         mask &= kpos[:, None, :] > qpos[:, :, None] - window
-    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    return mask
+
+
+def _plain_attention(q, k, v, qpos, kpos, window, scale, cap):
+    """q (B,S,K,G,D) x k/v (B,T,K,D) -> (B,S,K,G,D); scores in f32."""
+    s = torch.where(_mask(qpos, kpos, window)[:, None, None],
+                    _scores(q, k, scale, cap), NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
 
 
+def _chunked_attention(q, k, v, qpos, kpos, window, scale, cap):
+    """Online-softmax flash attention in plain torch: a loop over query
+    chunks, and inside it over KV chunks, carrying the running max ``m``,
+    the normaliser ``l`` and the output ``acc`` in f32.  Every tile is
+    visited, masked ones included, as the JAX scan does."""
+    b, sq, hk, g, d = q.shape
+    t = k.shape[1]
+    qc, kc = Q_CHUNK, KV_CHUNK
+    assert sq % qc == 0 and t % kc == 0, (sq, t)
+    out = torch.empty_like(q)
+    for i in range(0, sq, qc):
+        qi, qp = q[:, i:i + qc], qpos[:, i:i + qc]
+        m = torch.full((b, hk, g, qc), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, hk, g, qc), dtype=f32, device=q.device)
+        acc = torch.zeros((b, hk, g, qc, d), dtype=f32, device=q.device)
+        for j in range(0, t, kc):
+            s = torch.where(
+                _mask(qp, kpos[:, j:j + kc], window)[:, None, None],
+                _scores(qi, k[:, j:j + kc], scale, cap), NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p, v[:, j:j + kc].to(f32))
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)     # (B,K,G,Cq,D)
+        out[:, i:i + qc] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out
+
+
 def attention(cfg, p, x, *, positions, mode: str, cache=None,
               window: int = 0):
-    """Returns (y, cache).  ``positions``: (B,S) int32 for train/prefill;
-    (B,) global positions for decode.  ``cache`` is updated in place."""
+    """Returns (y, cache).  ``positions``: (B,S) [or (3,B,S) M-RoPE] int32
+    for train/prefill; (B,) [or (3,B)] global positions for decode.
+    ``cache`` is updated in place."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     scale = cfg.query_scale or dh ** -0.5
     cap = cfg.attn_logit_softcap
     b, s = x.shape[:2]
 
-    rope_pos = positions if mode != "decode" else positions[:, None]
+    rope_pos = positions if mode != "decode" else (
+        positions[..., None])  # (B,1) / (3,B,1)
     q = _split_heads(dense(p["q"], x), hq, dh)
     k = _split_heads(dense(p["k"], x), hkv, dh)
     v = _split_heads(dense(p["v"], x), hkv, dh)
-    q = apply_rope(q, rope_pos, cfg.rope_theta)
-    k = apply_rope(k, rope_pos, cfg.rope_theta)
+    q = apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
+    # the mask, the cache slot and the kernel read the token index, which
+    # is M-RoPE's first (temporal) section
+    tok_pos = positions[0] if cfg.mrope_sections else positions
 
     if mode == "decode":
         t = cache["k"].shape[1]
-        idx = torch.remainder(positions, t).long()         # ring slot
+        idx = torch.remainder(tok_pos, t).long()           # ring slot
         rows = torch.arange(b, device=x.device)
         cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
         out = ops.partition_attention(
             q.reshape(b, hkv, g, dh), cache["k"], cache["v"],
-            positions.to(torch.int32), window=window, logit_cap=cap,
+            tok_pos.to(torch.int32), window=window, logit_cap=cap,
             scale=scale)
         return dense(p["o"], out.reshape(b, 1, hq * dh)), cache
 
-    if s >= FLASH_SEQ:
-        raise NotImplementedError(
-            f"prefill of {s} >= FLASH_SEQ={FLASH_SEQ} tokens needs the "
-            f"chunked attention path, which is not ported yet")
-    out = _plain_attention(q.reshape(b, s, hkv, g, dh), k, v, positions,
-                           positions, window, scale, cap)
+    fn = _chunked_attention if s >= FLASH_SEQ else _plain_attention
+    out = fn(q.reshape(b, s, hkv, g, dh), k, v, tok_pos, tok_pos, window,
+             scale, cap)
     if mode == "prefill":
         t = cache["k"].shape[1]
         for name, new in (("k", k), ("v", v)):

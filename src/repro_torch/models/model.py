@@ -1,8 +1,11 @@
 """Top-level model API: param/cache specs, init, the row-wise cache
 utilities and the entry points (train forward, prefill, decode step).
 
-Port of ``repro.models.model`` for the dense, ssm (mamba2) and hybrid
-(recurrentgemma) families.  Params and caches are
+Port of ``repro.models.model`` for the decoder-only families: dense (with
+gemma2's post-norms and local/global blocks), moe (mixtral, dbrx), vlm
+(qwen2-vl: M-RoPE and the vision stub), ssm (mamba2) and hybrid
+(recurrentgemma).  The encoder-decoder ``audio`` family is not ported yet
+and raises.  Params and caches are
 plain nested dicts of tensors (tuples for the stacked groups), with the JAX
 package's tree structure, so ``tree_flatten`` orders their leaves the same
 way and the snapshot blob layout carries over byte for byte.
@@ -25,12 +28,14 @@ from repro_torch.models import transformer
 from repro_torch.models.layers import materialize, tree_flatten, tree_map
 
 
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.mrope_sections \
-            or cfg.post_norms:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: only dense, ssm and hybrid decoders without "
-            f"M-RoPE or post-norms are ported yet")
+            f"{cfg.name}: the {cfg.family!r} family (the encoder-decoder, "
+            f"ROADMAP item 10) is not ported yet; ported: {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -166,19 +171,31 @@ def cache_write_rows(caches, blob, rows, *, layout=None):
 # ---------------------------------------------------------------------------
 
 
-def _train_positions(batch: int, seq: int, device):
-    return torch.arange(seq, dtype=torch.int32,
-                        device=device).expand(batch, seq)
+def _train_positions(cfg, batch: int, seq: int, device):
+    pos = torch.arange(seq, dtype=torch.int32,
+                       device=device).expand(batch, seq)
+    if cfg.mrope_sections:
+        pos = pos.expand(3, batch, seq)
+    return pos
+
+
+def _decode_positions(cfg, positions):
+    """(B,) host-tracked global positions -> model positions."""
+    if cfg.mrope_sections and positions.dim() == 1:
+        return positions.expand(3, positions.shape[0])
+    return positions
 
 
 def forward_train(cfg: ModelConfig, params, batch: dict):
-    """batch: tokens (B,S).  Returns logits (B,S,Vp)."""
+    """batch: tokens (B,S) [+ vision_embeds (B,N,D)] [+ positions (B,S), or
+    (3,B,S) under M-RoPE].  Returns logits (B,S,Vp)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = batch.get("positions")
     if pos is None:
-        pos = _train_positions(b, s, tokens.device)
-    x = transformer.embed_tokens(cfg, params["embed"], tokens)
+        pos = _train_positions(cfg, b, s, tokens.device)
+    x = transformer.embed_tokens(cfg, params["embed"], tokens,
+                                 batch.get("vision_embeds"))
     x, _ = transformer.run_decoder(cfg, params["decoder"], x, mode="train",
                                    positions=pos)
     return transformer.lm_logits(cfg, params["embed"], x)
@@ -186,13 +203,15 @@ def forward_train(cfg: ModelConfig, params, batch: dict):
 
 def prefill(cfg: ModelConfig, params, batch: dict, caches):
     """Fill ``caches`` (in place) from a prompt; returns (last-token logits
-    (B,Vp), caches).  All rows prefill from position 0."""
+    (B,Vp), caches).  ``batch`` as for ``forward_train``.  All rows
+    prefill from position 0."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = batch.get("positions")
     if pos is None:
-        pos = _train_positions(b, s, tokens.device)
-    x = transformer.embed_tokens(cfg, params["embed"], tokens)
+        pos = _train_positions(cfg, b, s, tokens.device)
+    x = transformer.embed_tokens(cfg, params["embed"], tokens,
+                                 batch.get("vision_embeds"))
     x, caches = transformer.run_decoder(cfg, params["decoder"], x,
                                         mode="prefill", caches=caches,
                                         positions=pos)
@@ -202,11 +221,13 @@ def prefill(cfg: ModelConfig, params, batch: dict, caches):
 
 def decode_step(cfg: ModelConfig, params, tokens, positions, caches):
     """One decode step.  tokens (B,1) int; positions (B,) global position
-    of the new token per row (continuous batching: rows are independent).
-    Returns (logits (B,Vp), caches), the caches updated in place."""
+    of the new token per row (continuous batching: rows are independent;
+    under M-RoPE all three sections take it).  Returns (logits (B,Vp),
+    caches), the caches updated in place."""
     x = transformer.embed_tokens(cfg, params["embed"], tokens)
     x, caches = transformer.run_decoder(cfg, params["decoder"], x,
                                         mode="decode", caches=caches,
-                                        positions=positions)
+                                        positions=_decode_positions(
+                                            cfg, positions))
     logits = transformer.lm_logits(cfg, params["embed"], x)
     return logits[:, 0], caches

@@ -8,14 +8,17 @@ caches are ``(n_groups, P, T, Hkv, Dh)``), plus optional unstacked
 groups, this module loops over them and hands each block the group's slice
 (a view, so in-place cache writes land in the stacked tensors).  Block
 kinds: ``attn``, ``local`` and ``global`` attention, ``ssm`` (mamba2) and
-``rglru`` (recurrentgemma).  Experts and post-norms are not ported yet and
-raise.
+``rglru`` (recurrentgemma).  An attention block's FFN is a dense MLP or,
+when ``cfg.num_experts``, the top-k MoE of ``models.moe``; gemma2's
+sandwich norms (``pn1``/``pn2``) follow the attention and the FFN when
+``cfg.post_norms``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
@@ -27,11 +30,9 @@ KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind not in KINDS or cfg.num_experts or cfg.post_norms:
-        extra = " with experts" if cfg.num_experts else \
-            " with post-norms" if cfg.post_norms else ""
+    if kind not in KINDS:
         raise NotImplementedError(
-            f"{cfg.name}: block kind {kind!r}{extra} is not ported yet")
+            f"{cfg.name}: block kind {kind!r} is not ported yet")
 
 
 def block_spec(cfg, kind: str):
@@ -42,8 +43,13 @@ def block_spec(cfg, kind: str):
     if kind == "rglru":
         return {"ln1": norm_spec(d), "rec": rglru_mod.rglru_spec(cfg),
                 "ln2": norm_spec(d), "ffn": mlp_spec(cfg)}
-    return {"ln1": norm_spec(d), "attn": attn_mod.attn_spec(cfg),
-            "ln2": norm_spec(d), "ffn": mlp_spec(cfg)}
+    ffn = moe_mod.moe_spec(cfg) if cfg.num_experts else mlp_spec(cfg)
+    s = {"ln1": norm_spec(d), "attn": attn_mod.attn_spec(cfg),
+         "ln2": norm_spec(d), "ffn": ffn}
+    if cfg.post_norms:
+        s["pn1"] = norm_spec(d)
+        s["pn2"] = norm_spec(d)
+    return s
 
 
 def _window_for(cfg, kind: str) -> int:
@@ -108,14 +114,21 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
         h, _ = rglru_mod.rglru_block(cfg, p["rec"],
                                      rmsnorm(p["ln1"], x, cfg.norm_eps),
                                      mode=mode, cache=cache)
-    else:
-        h, _ = attn_mod.attention(cfg, p["attn"],
-                                  rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                  positions=positions, mode=mode,
-                                  cache=cache,
-                                  window=_window_for(cfg, kind))
+        x = x + h
+        return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h, _ = attn_mod.attention(cfg, p["attn"],
+                              rmsnorm(p["ln1"], x, cfg.norm_eps),
+                              positions=positions, mode=mode, cache=cache,
+                              window=_window_for(cfg, kind))
+    if cfg.post_norms:
+        h = rmsnorm(p["pn1"], h, cfg.norm_eps)
     x = x + h
-    return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+    h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h2 = moe_mod.moe_block(cfg, p["ffn"], h2) if cfg.num_experts \
+        else mlp(cfg, p["ffn"], h2)
+    if cfg.post_norms:
+        h2 = rmsnorm(p["pn2"], h2, cfg.norm_eps)
+    return x + h2
 
 
 def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None):
@@ -133,13 +146,15 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None):
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 
-def embed_tokens(cfg, embed_params, tokens):
+def embed_tokens(cfg, embed_params, tokens, vision_embeds=None):
     x = embed_params["tok"][tokens]
     if cfg.scale_embeddings:
         # the scale is rounded to the activation dtype first, as the JAX
         # package computes it (sqrt(2560) is 50.5 in bf16)
         x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype,
                                         device=x.device))
+    if vision_embeds is not None:      # stub patches over the first tokens
+        x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
     return x
 
 

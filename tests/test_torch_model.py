@@ -1,12 +1,14 @@
 """The port's model (``repro_torch.models.model``) against the JAX package's
-on the reduced dense configs, with the JAX parameters moved across by
-``repro_torch.convert``, plus the row-wise cache utilities.
+on the reduced decoder-only configs, with the JAX parameters moved across
+by ``repro_torch.convert``, plus the row-wise cache utilities.
 
 Logit tolerance: 2e-2 of the largest logit.  Both models run in bf16 (the
 parameter and cache specs are bf16) and round activations at different
 places (XLA fuses, PyTorch's CPU kernels round every op), which leaves
 differences near 1e-2 of the largest logit; the algorithm is checked in f32
-per layer in ``test_torch_layers.py``."""
+per layer in ``test_torch_layers.py``.  The MoE configs are held to 8e-2,
+the reference's own MoE bound (``tests/test_decode_consistency.py``): a
+bf16 rounding difference upstream can flip a top-k choice near a tie."""
 import dataclasses
 
 import jax
@@ -28,7 +30,12 @@ from repro_torch.models.layers import tree_flatten, tree_leaves
 torch.set_num_threads(1)
 DENSE = ["qwen2-7b", "qwen2-1.5b", "tinyllama-1.1b"]
 RECURRENT = ["mamba2-780m", "recurrentgemma-2b"]
+FAMILIES = ["gemma2-9b", "mixtral-8x7b", "dbrx-132b", "qwen2-vl-72b"]
 B, S = 2, 12
+
+
+def _tol(cfg) -> float:
+    return 8e-2 if cfg.family == "moe" else 2e-2
 
 
 def _rel_err(got, want):
@@ -37,7 +44,7 @@ def _rel_err(got, want):
     return float(np.abs(g - w).max() / (np.abs(w).max() + 1e-9))
 
 
-@pytest.fixture(scope="module", params=DENSE + RECURRENT)
+@pytest.fixture(scope="module", params=DENSE + RECURRENT + FAMILIES)
 def both(request):
     jcfg = jax_reduced(jax_get_config(request.param))
     cfg = reduced(get_config(request.param))
@@ -54,16 +61,17 @@ def test_prefill_and_decode_logits_match_jax(both):
     jl, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :S])}, jc)
     tl, tc = M.prefill(cfg, tp, {"tokens": torch.from_numpy(toks[:, :S])},
                        tc)
-    assert tl.shape == jl.shape and _rel_err(tl, jl) < 2e-2
+    tol = _tol(cfg)
+    assert tl.shape == jl.shape and _rel_err(tl, jl) < tol
     for i in (S, S + 1):                 # two steps: rows stay independent
         pos = np.asarray([i, i - 3], np.int32)
         jl, jc = JM.decode_step(jcfg, jp, jnp.asarray(toks[:, i:i + 1]),
                                 jnp.asarray(pos), jc)
         tl, tc = M.decode_step(cfg, tp, torch.from_numpy(toks[:, i:i + 1]),
                                torch.from_numpy(pos), tc)
-        assert _rel_err(tl, jl) < 2e-2, i
+        assert _rel_err(tl, jl) < tol, i
     for t, j in zip(tree_leaves(tc), jax.tree.leaves(jc)):
-        assert _rel_err(t, j) < 2e-2
+        assert _rel_err(t, j) < tol
 
 
 def test_ring_cache_prefill_longer_than_cache(both):
@@ -77,7 +85,7 @@ def test_ring_cache_prefill_longer_than_cache(both):
     _, tc = M.prefill(cfg, tp, {"tokens": torch.from_numpy(toks)},
                       M.init_caches(cfg, 1, 8, device="cpu"))
     for t, j in zip(tree_leaves(tc), jax.tree.leaves(jc)):
-        assert _rel_err(t, j) < 2e-2
+        assert _rel_err(t, j) < _tol(cfg)
 
 
 def test_decode_matches_forward():
@@ -94,7 +102,7 @@ def test_decode_matches_forward():
         < 0.05 * float(full.abs().max())
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES)
 @pytest.mark.parametrize("tokens", [128, 2048])
 def test_arena_bytes_match_jax(arch, tokens):
     for cut in (lambda c: c, reduced):
@@ -114,9 +122,23 @@ def test_arena_bytes_match_jax(arch, tokens):
         full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
         assert full.bytes_per_partition == {128: 1_417_216,
                                             2048: 17_145_856}[tokens]
+    # 2 K/V x Hkv 8 x 2 B x Dh per layer and token; gemma2's local ring is
+    # min(tokens, 4096) slots, mixtral's sliding ring min(tokens, 4096)
+    want = {"gemma2-9b": 42 * 2 * 8 * 256 * 2 * tokens,
+            "mixtral-8x7b": 32 * 2 * 8 * 128 * 2 * tokens,
+            "dbrx-132b": 40 * 2 * 8 * 128 * 2 * tokens,
+            "qwen2-vl-72b": 80 * 2 * 8 * 128 * 2 * tokens}.get(arch)
+    if want is not None:
+        full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
+        assert full.bytes_per_partition == want
+        if tokens == 2048:
+            assert want == {"gemma2-9b": 704_643_072,
+                            "mixtral-8x7b": 268_435_456,
+                            "dbrx-132b": 335_544_320,
+                            "qwen2-vl-72b": 671_088_640}[arch]
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES)
 def test_param_specs_match_jax(arch):
     """Full-width spec trees (no allocation): same leaves in the same
     tree-flatten order, same shapes, same dtypes and init scales."""
@@ -135,20 +157,10 @@ def test_param_specs_match_jax(arch):
         jax_get_config(arch).param_count()
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "gemma2-9b",
-                                  "mixtral-8x7b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10"):
         M.param_specs(reduced(get_config(arch)))
-
-
-def test_long_prefill_raises():
-    cfg = reduced(get_config("qwen2-7b"))
-    params = M.init_params(cfg, 0, device="cpu")
-    toks = torch.zeros((1, 8192), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        M.prefill(cfg, params, {"tokens": toks},
-                  M.init_caches(cfg, 1, 8192, device="cpu"))
 
 
 # ------------------------------------------------- row-wise cache utilities
