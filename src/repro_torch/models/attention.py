@@ -56,6 +56,11 @@ def _scores(q, k, scale, cap):
     return softcap(s, cap)
 
 
+def _weighted(v, w):
+    """w (B,K,G,S,T) x v (B,T,K,D) -> (B,S,K,G,D), in v's dtype."""
+    return torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+
+
 def _mask(qpos, kpos, window):
     """(B,S,T): key at or before the query, and inside the window."""
     mask = kpos[:, None, :] <= qpos[:, :, None]            # causal
@@ -68,8 +73,7 @@ def _plain_attention(q, k, v, qpos, kpos, window, scale, cap):
     """q (B,S,K,G,D) x k/v (B,T,K,D) -> (B,S,K,G,D); scores in f32."""
     s = torch.where(_mask(qpos, kpos, window)[:, None, None],
                     _scores(q, k, scale, cap), NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return _weighted(v, torch.softmax(s, dim=-1))
 
 
 def _chunked_attention(q, k, v, qpos, kpos, window, scale, cap):

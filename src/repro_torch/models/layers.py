@@ -12,6 +12,7 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -224,7 +225,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Vocabulary padding
+# Vocabulary padding + loss
 # ---------------------------------------------------------------------------
 
 VOCAB_PAD = 2048
@@ -235,3 +236,26 @@ def padded_vocab(cfg) -> int:
     if v % 16 == 0:          # evenly shardable over a 16-way model axis
         return v
     return ((v + VOCAB_PAD - 1) // VOCAB_PAD) * VOCAB_PAD
+
+
+def vocab_logit_bias(cfg) -> Optional[np.ndarray]:
+    """-1e9 bias on padded vocab entries (None when unpadded)."""
+    vp = padded_vocab(cfg)
+    if vp == cfg.vocab_size:
+        return None
+    bias = np.zeros((vp,), np.float32)
+    bias[cfg.vocab_size:] = -1e9
+    return bias
+
+
+def cross_entropy(cfg, logits: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL in f32; logits (B, S, Vp) possibly vocab-padded and
+    softcapped (the cap is applied in the logits' dtype, then f32)."""
+    logits = softcap(logits, cfg.final_logit_softcap).to(f32)
+    bias = vocab_logit_bias(cfg)
+    if bias is not None:
+        logits = logits + torch.from_numpy(bias).to(logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -1,14 +1,14 @@
 """Top-level model API: param/cache specs, init, the row-wise cache
 utilities and the entry points (train forward, prefill, decode step).
 
-Port of ``repro.models.model`` for the decoder-only families: dense (with
-gemma2's post-norms and local/global blocks), moe (mixtral, dbrx), vlm
-(qwen2-vl: M-RoPE and the vision stub), ssm (mamba2) and hybrid
-(recurrentgemma).  The encoder-decoder ``audio`` family is not ported yet
-and raises.  Params and caches are
-plain nested dicts of tensors (tuples for the stacked groups), with the JAX
-package's tree structure, so ``tree_flatten`` orders their leaves the same
-way and the snapshot blob layout carries over byte for byte.
+Port of ``repro.models.model`` for every family: dense (with gemma2's
+post-norms and local/global blocks), moe (mixtral, dbrx), vlm (qwen2-vl:
+M-RoPE and the vision stub), ssm (mamba2), hybrid (recurrentgemma) and the
+encoder-decoder audio family (seamless, ``models.encdec``).  Params and
+caches are plain nested dicts of tensors (tuples for the stacked groups),
+with the JAX package's tree structure, so ``tree_flatten`` orders their
+leaves the same way and the snapshot blob layout carries over byte for
+byte.
 
 Two differences from the JAX package, both about memory:
   * prefill, decode and the row writes update the cache tensors in place
@@ -24,18 +24,8 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import materialize, tree_flatten, tree_map
-
-
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (the encoder-decoder, "
-            f"ROADMAP item 10) is not ported yet; ported: {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -44,14 +34,18 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def param_specs(cfg: ModelConfig):
-    _check_supported(cfg)
-    specs: dict[str, Any] = {"embed": transformer.embed_specs(cfg),
-                             "decoder": transformer.decoder_specs(cfg)}
+    specs: dict[str, Any] = {"embed": transformer.embed_specs(cfg)}
+    if cfg.family == "audio":
+        specs["encoder"] = encdec.encoder_specs(cfg)
+        specs["decoder"] = encdec.decoder_specs(cfg)
+    else:
+        specs["decoder"] = transformer.decoder_specs(cfg)
     return specs
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
-    _check_supported(cfg)
+    if cfg.family == "audio":
+        return encdec.dec_cache_specs(cfg, batch, cache_len)
     return transformer.decoder_cache_specs(cfg, batch, cache_len)
 
 
@@ -186,9 +180,24 @@ def _decode_positions(cfg, positions):
     return positions
 
 
-def forward_train(cfg: ModelConfig, params, batch: dict):
-    """batch: tokens (B,S) [+ vision_embeds (B,N,D)] [+ positions (B,S), or
-    (3,B,S) under M-RoPE].  Returns logits (B,S,Vp)."""
+def _backbone(cfg: ModelConfig, params, x, batch=None, **kw):
+    """The decoder stack over embeddings ``x``; in the audio family the
+    encoder runs first over ``batch["frames"]`` (train and prefill; decode
+    passes no batch and reads the cross cache)."""
+    if cfg.family != "audio":
+        return transformer.run_decoder(cfg, params["decoder"], x, **kw)
+    enc_out = None if batch is None else encdec.run_encoder(
+        cfg, params["encoder"], batch["frames"])
+    return encdec.run_decoder(cfg, params["decoder"], x, enc_out=enc_out,
+                              **kw)
+
+
+def forward_train(cfg: ModelConfig, params, batch: dict, *,
+                  remat: bool = True):
+    """batch: tokens (B,S) [+ vision_embeds (B,N,D) | frames (B,src,D)]
+    [+ positions (B,S), or (3,B,S) under M-RoPE].  Returns logits
+    (B,S,Vp).  ``remat`` checkpoints the decoder's block groups when
+    autograd is on (``transformer.checkpointed``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = batch.get("positions")
@@ -196,15 +205,16 @@ def forward_train(cfg: ModelConfig, params, batch: dict):
         pos = _train_positions(cfg, b, s, tokens.device)
     x = transformer.embed_tokens(cfg, params["embed"], tokens,
                                  batch.get("vision_embeds"))
-    x, _ = transformer.run_decoder(cfg, params["decoder"], x, mode="train",
-                                   positions=pos)
+    x, _ = _backbone(cfg, params, x, batch, mode="train", positions=pos,
+                     remat=remat)
     return transformer.lm_logits(cfg, params["embed"], x)
 
 
 def prefill(cfg: ModelConfig, params, batch: dict, caches):
     """Fill ``caches`` (in place) from a prompt; returns (last-token logits
-    (B,Vp), caches).  ``batch`` as for ``forward_train``.  All rows
-    prefill from position 0."""
+    (B,Vp), caches).  ``batch`` as for ``forward_train`` (the audio family
+    needs ``frames`` of exactly ``encoder_src_len``).  All rows prefill
+    from position 0."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pos = batch.get("positions")
@@ -212,9 +222,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, caches):
         pos = _train_positions(cfg, b, s, tokens.device)
     x = transformer.embed_tokens(cfg, params["embed"], tokens,
                                  batch.get("vision_embeds"))
-    x, caches = transformer.run_decoder(cfg, params["decoder"], x,
-                                        mode="prefill", caches=caches,
-                                        positions=pos)
+    x, caches = _backbone(cfg, params, x, batch, mode="prefill",
+                          caches=caches, positions=pos)
     logits = transformer.lm_logits(cfg, params["embed"], x[:, -1:])
     return logits[:, 0], caches
 
@@ -225,9 +234,7 @@ def decode_step(cfg: ModelConfig, params, tokens, positions, caches):
     under M-RoPE all three sections take it).  Returns (logits (B,Vp),
     caches), the caches updated in place."""
     x = transformer.embed_tokens(cfg, params["embed"], tokens)
-    x, caches = transformer.run_decoder(cfg, params["decoder"], x,
-                                        mode="decode", caches=caches,
-                                        positions=_decode_positions(
-                                            cfg, positions))
+    x, caches = _backbone(cfg, params, x, mode="decode", caches=caches,
+                          positions=_decode_positions(cfg, positions))
     logits = transformer.lm_logits(cfg, params["embed"], x)
     return logits[:, 0], caches

@@ -16,6 +16,7 @@ sandwich norms (``pn1``/``pn2``) follow the attention and the FFN when
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -23,7 +24,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
                                        mlp_spec, norm_spec, padded_vocab,
-                                       rmsnorm, softcap, stack_specs)
+                                       rmsnorm, softcap, stack_specs,
+                                       tree_flatten, tree_unflatten)
 
 ATTN_KINDS = ("attn", "local", "global")
 KINDS = ATTN_KINDS + ("ssm", "rglru")
@@ -104,6 +106,16 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` slices of the leading (stacked) axis of every leaf, as
+    ``n`` trees of views, from one ``unbind`` per leaf: autograd then
+    stacks the slices' gradients once, where indexing each slice would
+    add a zero-filled gradient of the whole stack per slice."""
+    leaves, treedef = tree_flatten(tree)
+    parts = [x.unbind(0) for x in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in parts]) for i in range(n)]
+
+
 def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
     if kind == "ssm":
         h, _ = ssm_mod.ssm_block(cfg, p["mixer"],
@@ -131,14 +143,33 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
     return x + h2
 
 
-def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None):
-    """x (B,S,D) -> (y (B,S,D), caches), the caches updated in place."""
+def checkpointed(fn, x):
+    """``fn(x)`` under activation checkpointing, the twin of the JAX
+    package's ``jax.checkpoint(..., nothing_saveable)``: only ``x`` is
+    kept for the backward pass, and ``fn`` runs again to rebuild the rest.
+    The model draws no random numbers, so no RNG state is kept."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
+                remat: bool = False):
+    """x (B,S,D) -> (y (B,S,D), caches), the caches updated in place.
+    ``remat`` checkpoints each block group (the tail blocks are not), as
+    the JAX package does; it acts only in train mode with autograd on."""
+    remat = remat and mode == "train" and torch.is_grad_enabled()
+    groups = [unstack(p, cfg.n_groups) for p in params["groups"]]
     for gi in range(cfg.n_groups):
-        for i, kind in enumerate(cfg.block_pattern):
-            c = _index(caches["groups"][i], gi) if caches is not None \
-                else None
-            x = block_forward(cfg, kind, _index(params["groups"][i], gi), x,
-                              mode=mode, cache=c, positions=positions)
+        gp = [g[gi] for g in groups]
+        gc = [_index(c, gi) for c in caches["groups"]] \
+            if caches is not None else [None] * len(gp)
+
+        def group(h, gp=gp, gc=gc):
+            for kind, p, c in zip(cfg.block_pattern, gp, gc):
+                h = block_forward(cfg, kind, p, h, mode=mode, cache=c,
+                                  positions=positions)
+            return h
+        x = checkpointed(group, x) if remat else group(x)
     for i, kind in enumerate(cfg.tail_pattern):
         c = caches["tail"][i] if caches is not None else None
         x = block_forward(cfg, kind, params["tail"][i], x, mode=mode,

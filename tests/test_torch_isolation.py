@@ -6,7 +6,8 @@
     package sources once ``repro.`` is renamed ``repro_torch.``, and the
     functions ``launch/distributed.py`` keeps equal theirs;
   * no kernel wrapper catches an error around a launch (no quiet fallback
-    from the kernel to its plain version)."""
+    from the kernel to its plain version), and neither do the model, the
+    training modules and their launchers."""
 import ast
 import json
 import os
@@ -26,7 +27,7 @@ VERBATIM = ["configs/base.py"] + [
         "qwen2_1_5b", "qwen2_7b", "qwen2_vl_72b", "recurrentgemma_2b",
         "seamless_m4t_medium", "tinyllama_1_1b")] + [
     "core/hotmem.py", "core/vanilla.py", "serving/request.py",
-    "serving/tracegen.py",
+    "serving/tracegen.py", "training/data.py",
     "cluster/topology.py", "cluster/ledger.py", "cluster/snapshots.py",
     "cluster/host.py", "cluster/router.py", "cluster/fleet.py",
     "cluster/sim.py", "cluster/scenarios.py", "cluster/__init__.py"]
@@ -98,7 +99,13 @@ def test_distributed_keeps_its_functions_verbatim(name):
                                  "kernels/partition_attention.py",
                                  "kernels/paged_attention.py",
                                  "kernels/kv_snapshot.py",
-                                 "kernels/kv_compact.py"])
+                                 "kernels/kv_compact.py",
+                                 "models/encdec.py", "models/model.py",
+                                 "models/transformer.py",
+                                 "training/optimizer.py",
+                                 "training/train_step.py",
+                                 "training/checkpoint.py",
+                                 "launch/train.py", "launch/quickstart.py"])
 def test_no_except_around_a_kernel_launch(rel):
     tree = ast.parse((PORT / rel).read_text())
     handlers = [n.lineno for n in ast.walk(tree)

@@ -31,6 +31,7 @@ torch.set_num_threads(1)
 DENSE = ["qwen2-7b", "qwen2-1.5b", "tinyllama-1.1b"]
 RECURRENT = ["mamba2-780m", "recurrentgemma-2b"]
 FAMILIES = ["gemma2-9b", "mixtral-8x7b", "dbrx-132b", "qwen2-vl-72b"]
+AUDIO = "seamless-m4t-medium"     # its model-level parity: test_torch_encdec
 B, S = 2, 12
 
 
@@ -102,7 +103,7 @@ def test_decode_matches_forward():
         < 0.05 * float(full.abs().max())
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES + [AUDIO])
 @pytest.mark.parametrize("tokens", [128, 2048])
 def test_arena_bytes_match_jax(arch, tokens):
     for cut in (lambda c: c, reduced):
@@ -127,7 +128,9 @@ def test_arena_bytes_match_jax(arch, tokens):
     want = {"gemma2-9b": 42 * 2 * 8 * 256 * 2 * tokens,
             "mixtral-8x7b": 32 * 2 * 8 * 128 * 2 * tokens,
             "dbrx-132b": 40 * 2 * 8 * 128 * 2 * tokens,
-            "qwen2-vl-72b": 80 * 2 * 8 * 128 * 2 * tokens}.get(arch)
+            "qwen2-vl-72b": 80 * 2 * 8 * 128 * 2 * tokens,
+            # self K/V over the tokens + cross K/V over 1024 source frames
+            AUDIO: 12 * 2 * 16 * 64 * 2 * (tokens + 1024)}.get(arch)
     if want is not None:
         full = ArenaSpec.from_model(get_config(arch), tokens, 8, 32)
         assert full.bytes_per_partition == want
@@ -135,10 +138,11 @@ def test_arena_bytes_match_jax(arch, tokens):
             assert want == {"gemma2-9b": 704_643_072,
                             "mixtral-8x7b": 268_435_456,
                             "dbrx-132b": 335_544_320,
-                            "qwen2-vl-72b": 671_088_640}[arch]
+                            "qwen2-vl-72b": 671_088_640,
+                            AUDIO: 150_994_944}[arch]
 
 
-@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT + FAMILIES + [AUDIO])
 def test_param_specs_match_jax(arch):
     """Full-width spec trees (no allocation): same leaves in the same
     tree-flatten order, same shapes, same dtypes and init scales."""
@@ -155,12 +159,6 @@ def test_param_specs_match_jax(arch):
                              j.scale)
     assert get_config(arch).param_count() == \
         jax_get_config(arch).param_count()
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        M.param_specs(reduced(get_config(arch)))
 
 
 # ------------------------------------------------- row-wise cache utilities
