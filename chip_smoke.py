@@ -24,7 +24,11 @@ M-RoPE positions and the vision stub; then training: full-width
 tinyllama-1.1b through ``launch/train.py``'s step at 8 x 1024 tokens
 (grad accumulation, memorising a batch, the step's time and device time,
 peak memory with and without remat) and a crash and resume of reduced
-qwen2-1.5b through ``launch/train.py``; then full-width
+qwen2-1.5b through ``launch/train.py``; then the sharding layer on a world
+of one (NCCL, the (1, 1) host mesh): the same training on the mesh, its
+losses held to the unsharded run's, a reshard on load, one full-width
+mixtral MoE layer through the shard-map path against the dense one, and
+the cluster demo's trace on a two-device sharded host; then full-width
 seamless-m4t-medium at the model level: the snapshot kernels over its
 self and cross K/V, ``partition_attention`` at its head dim 64, the encoder
 over stub frames, prefill, decode against the train forward and a train
@@ -46,6 +50,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -56,6 +61,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -64,21 +70,31 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import roofline  # noqa: E402
 from repro_torch.cluster.host import HostMemoryBroker  # noqa: E402
+from repro_torch.cluster.topology import DeviceTopology  # noqa: E402
 from repro_torch.configs.base import get_config, reduced  # noqa: E402
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
 from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
 from repro_torch.kernels.partition_attention import splits_for  # noqa: E402
 from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
-                                             demo_requests, summarize)
+                                             demo_requests, host_budget,
+                                             load_model, summarize)
 from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
-from repro_torch.launch.train import make_batch, train  # noqa: E402
+from repro_torch.launch import distributed  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.train import (batch_to_mesh, make_batch,  # noqa: E402
+                                      scalar, state_shardings, train)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.layers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.layers import (materialize,  # noqa: E402
+                                       tree_leaves, tree_map)
+from repro_torch.sharding import (DP_ONLY_TRAIN_RULES,  # noqa: E402
+                                  current_ctx, distribute, is_dtensor,
+                                  named_sharding, sharding_ctx,
+                                  train_rules_for)
 from repro_torch.serving.engine import (ServeEngine,  # noqa: E402
                                         assemble_pages)
 from repro_torch.serving.request import (PROFILES,  # noqa: E402
@@ -2030,8 +2046,8 @@ def _run_steps(step_fn, state, batch, n: int):
     for _ in range(n):
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
-        loss = float(m["loss"])
-        out.append((loss, float(m["grad_norm"]), time.perf_counter() - t0))
+        loss = scalar(m["loss"])
+        out.append((loss, scalar(m["grad_norm"]), time.perf_counter() - t0))
     return state, out
 
 
@@ -2040,7 +2056,7 @@ def _peak_bytes(step_fn, state, batch):
     torch.cuda.synchronize(DEV)
     torch.cuda.reset_peak_memory_stats(DEV)
     state, m = step_fn(state, batch)
-    float(m["loss"])
+    scalar(m["loss"])
     return state, torch.cuda.max_memory_allocated(DEV)
 
 
@@ -2079,6 +2095,93 @@ def _crash_resume() -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _train_run(cfg, state, batch, lrs, mesh=None, rules=None):
+    """``phase_train``'s run, on ``mesh`` under ``rules`` when given:
+    grad accumulation 2 against 1 on the same params and batch, then
+    memorising ``batch`` in 6 steps with warmup 1 from the same start at
+    each of ``lrs`` (the last is the run that is measured and checked),
+    its step profiled; the peak memory is that of the last run, with the
+    state, the batch and nothing else held.  A step updates ``state`` in
+    place, and the dict it returns is dropped: the caller holds ``state``
+    too, so an optimizer state that a second dict held would stay alive.
+    Returns (state, figures)."""
+    start = [x.clone() for x in tree_leaves(state["params"])]
+
+    def rewind():
+        for x, x0 in zip(tree_leaves(state["params"]), start):
+            x.copy_(x0)
+
+    with sharding_ctx(mesh, rules or {}):
+        accum = {}
+        for a in (1, 2):
+            rewind()
+            m = make_train_step(cfg, grad_accum=a)(state, batch)[1]
+            accum[a] = {"loss": scalar(m["loss"]),
+                        "grad_norm": scalar(m["grad_norm"])}
+        memorise = {}
+        for i, lr in enumerate(lrs):
+            rewind()
+            if i == len(lrs) - 1:
+                start.clear()
+            state["opt"] = None
+            gc.collect()
+            state["opt"] = init_opt_state(state["params"])
+            step_fn = make_train_step(cfg, AdamWConfig(lr=lr,
+                                                       warmup_steps=1))
+            torch.cuda.synchronize(DEV)
+            torch.cuda.reset_peak_memory_stats(DEV)
+            memorise[lr] = _run_steps(step_fn, state, batch, 6)[1]
+        peak = torch.cuda.max_memory_allocated(DEV)
+        n_prof = 2
+        kernels, prof_wall = _device_kernels(lambda: step_fn(state, batch),
+                                             n_prof)
+    steps = memorise[lrs[-1]]
+    wall = float(np.median([x[2] for x in steps[1:]]))
+    busy_us = sum(k[0] for k in kernels)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * sum(x.numel() for x in tree_leaves(state["params"])) \
+        * tokens
+    return state, {
+        "grad_accum": accum,
+        "grad_accum_loss_diff": abs(accum[1]["loss"] - accum[2]["loss"]),
+        "grad_accum_grad_norm_rel_diff":
+            abs(accum[1]["grad_norm"] - accum[2]["grad_norm"])
+            / (accum[1]["grad_norm"] + 1e-9),
+        "lr": lrs[-1], "losses": [x[0] for x in steps],
+        "grad_norms": [x[1] for x in steps],
+        "reported": {str(lr): {"losses": [x[0] for x in memorise[lr]],
+                               "grad_norms": [x[1] for x in memorise[lr]]}
+                     for lr in lrs[:-1]},
+        "first_step_ms": steps[0][2] * 1e3,
+        "step_walls_ms": [x[2] * 1e3 for x in steps],
+        "step_ms_median": wall * 1e3,
+        "device_busy_ms_per_step": busy_us / n_prof / 1e3,
+        "device_busy_share": busy_us / 1e6 / prof_wall,
+        "tokens_per_s": tokens / wall,
+        "model_flops_per_step": flops,
+        "peak_bf16_share": flops / wall / roofline.PEAK_BF16,
+        "peak_bytes": peak,
+        "top": [{"kernel": k[2][:90], "ms_per_step": k[0] / n_prof / 1e3,
+                 "launches_per_step": k[1] / n_prof,
+                 "share": k[0] / busy_us} for k in kernels[:8]]}
+
+
+def _check_train_run(run: dict, tag: str) -> bool:
+    """The bounds of ``tests/test_training.py``'s grad accumulation check
+    and a memorising run whose loss falls."""
+    accum_ok = run["grad_accum_loss_diff"] < 2e-2 \
+        and run["grad_accum_grad_norm_rel_diff"] < 5e-2
+    check(accum_ok, f"{tag}grad_accum 2 vs 1: loss "
+          f"{run['grad_accum_loss_diff']} < 2e-2, grad norm "
+          f"{run['grad_accum_grad_norm_rel_diff']} < 5e-2 relative")
+    losses, norms = run["losses"], run["grad_norms"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(g > 0 for g in norms),
+          f"{tag}{TRAIN_ARCH} memorises a fixed batch at lr {run['lr']}: "
+          f"losses {losses}, grad norms {norms}")
+    return accum_ok
+
+
 def phase_train() -> dict:
     """Full-width tinyllama-1.1b (random bf16 weights from seed 0, f32
     AdamW state) through ``launch/train.py``'s step on batches of 8 x 1024
@@ -2108,52 +2211,8 @@ def phase_train() -> dict:
     data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ,
                                       TRAIN_BATCH))
     batch = make_batch(cfg, data, 0, DEV)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-
-    start = [x.clone() for x in tree_leaves(state["params"])]
-
-    def rewind():
-        for x, x0 in zip(tree_leaves(state["params"]), start):
-            x.copy_(x0)
-
-    accum = {}
-    for a in (1, 2):
-        rewind()
-        _, m = make_train_step(cfg, grad_accum=a)(state, batch)
-        accum[a] = {"loss": float(m["loss"]),
-                    "grad_norm": float(m["grad_norm"])}
-    d_loss = abs(accum[1]["loss"] - accum[2]["loss"])
-    d_norm = abs(accum[1]["grad_norm"] - accum[2]["grad_norm"]) \
-        / (accum[1]["grad_norm"] + 1e-9)
-    check(d_loss < 2e-2 and d_norm < 5e-2,
-          f"grad_accum 2 vs 1: loss {d_loss} < 2e-2, grad norm {d_norm} "
-          f"< 5e-2 relative")
-
-    memorise = {}
-    for lr in (*REPORTED_LRS, TRAIN_LR):
-        rewind()
-        state["opt"] = None
-        gc.collect()
-        state["opt"] = init_opt_state(state["params"])
-        step_fn = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=1))
-        torch.cuda.synchronize(DEV)
-        torch.cuda.reset_peak_memory_stats(DEV)
-        state, steps = _run_steps(step_fn, state, batch, 6)
-        memorise[lr] = steps
-    del start
-    peak_main = torch.cuda.max_memory_allocated(DEV)
-    losses = [x[0] for x in steps]
-    norms = [x[1] for x in steps]
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
-          and all(g > 0 for g in norms),
-          f"{TRAIN_ARCH} memorises a fixed batch at lr {TRAIN_LR}: losses "
-          f"{losses}, grad norms {norms}")
-    wall = float(np.median([x[2] for x in steps[1:]]))
-    n_prof = 2
-    kernels, prof_wall = _device_kernels(lambda: step_fn(state, batch),
-                                         n_prof)
-    busy_us = sum(k[0] for k in kernels)
-    flops = 6.0 * n_params * tokens
+    state, run = _train_run(cfg, state, batch, (*REPORTED_LRS, TRAIN_LR))
+    _check_train_run(run, "")
 
     small = {k: v[:TRAIN_BATCH // 2] for k, v in batch.items()}
     peak = {}
@@ -2167,30 +2226,201 @@ def phase_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     resume = _crash_resume()
+    top = run.pop("top")
     out = {"config": TRAIN_ARCH, "params": n_params, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "remat": True, "state_bytes": state_bytes,
-           "grad_accum": accum, "grad_accum_loss_diff": d_loss,
-           "grad_accum_grad_norm_rel_diff": d_norm,
-           "lr": TRAIN_LR, "losses": losses, "grad_norms": norms,
-           "reported": {str(lr): {"losses": [x[0] for x in memorise[lr]],
-                                  "grad_norms": [x[1] for x in memorise[lr]]}
-                        for lr in REPORTED_LRS},
-           "step_walls_ms": [x[2] * 1e3 for x in steps],
-           "step_ms_median": wall * 1e3,
-           "device_busy_ms_per_step": busy_us / n_prof / 1e3,
-           "device_busy_share": busy_us / 1e6 / prof_wall,
-           "tokens_per_s": tokens / wall,
-           "model_flops_per_step": flops,
-           "peak_bf16_share": flops / wall / roofline.PEAK_BF16,
-           "peak_bytes_8x1024_remat": peak_main,
-           "peak_bytes_4x1024": {"remat": peak[True],
-                                 "no_remat": peak[False]},
+           **run, "peak_bytes_4x1024": {"remat": peak[True],
+                                        "no_remat": peak[False]},
            "crash_resume": resume,
            "seconds": time.perf_counter() - t0}
-    emit({"phase": "train", **out,
-          "top": [{"kernel": k[2][:90], "ms_per_step": k[0] / n_prof / 1e3,
-                   "launches_per_step": k[1] / n_prof,
-                   "share": k[0] / busy_us} for k in kernels[:8]]})
+    emit({"phase": "train", **out, "top": top})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh phase: the sharding layer on a world of one
+# ---------------------------------------------------------------------------
+
+MESH_MOE_ARCH, MESH_MOE_ROWS, MESH_MOE_SEQ = "mixtral-8x7b", 4, 256
+MESH_LOSS_TOL = 2e-2
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _mesh_train(mesh, checks: dict, plain: dict) -> tuple[dict, dict]:
+    """``phase_train``'s run on the mesh: full-width tinyllama-1.1b under
+    ``train_rules_for`` (DP-only: batch and weights over every axis),
+    params, master, m and v DTensors on the mesh, the batch on ("batch",
+    "seq"); grad accumulation 2 against 1, then memorising the same batch
+    at ``TRAIN_LR`` from the same start, its losses held to
+    ``phase_train``'s.  Returns (figures, state)."""
+    cfg = get_config(TRAIN_ARCH)
+    rules = train_rules_for(cfg)
+    checks["tinyllama_trains_dp_only"] = rules is DP_ONLY_TRAIN_RULES
+    params = M.init_params(cfg, 0, device=DEV, mesh=mesh, rules=rules)
+    state = {"params": params, "opt": init_opt_state(params)}
+    del params
+    leaves = tree_leaves(state["params"]) + [
+        x for k in ("master", "m", "v") for x in tree_leaves(state["opt"][k])]
+    checks["every_state_leaf_a_dtensor_on_the_mesh"] = all(
+        is_dtensor(x) and x.device_mesh == mesh for x in leaves)
+    del leaves
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH))
+    batch = batch_to_mesh(make_batch(cfg, data, 0, DEV), mesh, rules)
+    state, run = _train_run(cfg, state, batch, (TRAIN_LR,), mesh, rules)
+    checks["grad_accum_2_vs_1"] = _check_train_run(run, "mesh: ")
+    diffs = [abs(a - b) for a, b in zip(run["losses"], plain["losses"],
+                                        strict=True)]
+    checks["losses_equal_the_unsharded_run"] = max(diffs) < MESH_LOSS_TOL
+    checks["local_shapes_are_shard_shapes"] = all(
+        tuple(x.to_local().shape) == sh.shard_shape(tuple(x.shape))
+        for x, sh in zip(tree_leaves(state["params"]),
+                         tree_leaves(M.param_shardings(cfg, mesh, rules)),
+                         strict=True))
+    return {"config": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            **{k: run[k] for k in (
+                "lr", "losses", "grad_accum", "grad_accum_loss_diff",
+                "grad_accum_grad_norm_rel_diff", "first_step_ms",
+                "step_walls_ms")},
+            "losses_without_mesh": plain["losses"],
+            "loss_max_abs_diff": max(diffs), "loss_tol": MESH_LOSS_TOL,
+            **{f"{k}{sfx}": src[k] for k in (
+                "step_ms_median", "device_busy_ms_per_step",
+                "device_busy_share", "tokens_per_s", "peak_bytes")
+               for sfx, src in (("", run), ("_without_mesh", plain))}}, \
+        state
+
+
+def _mesh_reshard(mesh, state, checks: dict) -> dict:
+    """The mesh run's params saved asynchronously (a full-width train
+    state would be 15.4 GB of npz; the params are 2.2 GB), restored onto
+    the mesh's placements and onto no mesh: both bit-equal to the saved
+    leaves."""
+    cfg = get_config(TRAIN_ARCH)
+    saved = {"params": state["params"]}
+    target = {"params": state_shardings(cfg, mesh,
+                                        train_rules_for(cfg))["params"]}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 6, saved, blocking=False).join()
+        t_save = time.perf_counter() - t0
+        on_mesh = ckpt.restore(d, 6, saved, placements=target)
+        plain = ckpt.restore(d, 6, saved, device=DEV)
+    want = tree_leaves(saved["params"])
+    checks["restored_onto_the_mesh_bit_equal"] = all(
+        is_dtensor(x) and x.placements == sh.placements
+        and torch.equal(x.to_local(), w.to_local())
+        for x, w, sh in zip(tree_leaves(on_mesh["params"]), want,
+                            tree_leaves(target["params"]), strict=True))
+    checks["restored_onto_no_mesh_bit_equal"] = all(
+        not is_dtensor(x) and torch.equal(x, w.full_tensor())
+        for x, w in zip(tree_leaves(plain["params"]), want, strict=True))
+    return {"saved": "params", "bytes": sum(x.numel() * x.element_size()
+                                            for x in want),
+            "save_s": t_save, "seconds": time.perf_counter() - t0}
+
+
+def _mesh_moe(mesh, gen, checks: dict) -> dict:
+    """One full-width mixtral-8x7b MoE layer (8 experts of d_ff 14336,
+    2.8 GB of bf16 expert weights) under ``train_rules_for`` (the ``tp``
+    override): 4 x 256 tokens through ``_moe_shard_map`` on the mesh and
+    through ``_moe_dense``, routing equal, outputs within 8e-2 of the
+    largest, both timed."""
+    cfg = get_config(MESH_MOE_ARCH)
+    rules = train_rules_for(cfg)
+    p = materialize(moe_mod.moe_spec(cfg), 0, device=DEV, mesh=mesh,
+                    rules=rules)
+    plain = {k: v.full_tensor() for k, v in p.items()}
+    shape = (MESH_MOE_ROWS, MESH_MOE_SEQ, cfg.d_model)
+    x = randn(shape, torch.bfloat16, gen)
+    xd = distribute(x, named_sharding(("batch", "seq", None), shape, mesh,
+                                      rules))
+    with sharding_ctx(mesh, rules):
+        ctx = current_ctx()
+        y_map = moe_mod._moe_shard_map(cfg, p, xd, ctx)
+        ms_map = median_ms(lambda: moe_mod._moe_shard_map(cfg, p, xd, ctx))
+        local_routes = moe_mod.route(cfg, {"router": p["router"].to_local()},
+                                     xd.to_local().reshape(-1, cfg.d_model))
+    y = moe_mod._moe_dense(cfg, plain, x)
+    ms_dense = median_ms(lambda: moe_mod._moe_dense(cfg, plain, x))
+    routes = moe_mod.route(cfg, plain, x.reshape(-1, cfg.d_model))
+    err = float((y_map.full_tensor().float() - y.float()).abs().max()
+                / y.float().abs().max())
+    checks["moe_routing_equal"] = torch.equal(local_routes[1], routes[1])
+    checks["moe_shard_map_matches_dense"] = err < 8e-2
+    return {"config": MESH_MOE_ARCH, "tokens": MESH_MOE_ROWS * MESH_MOE_SEQ,
+            "expert_bytes": sum(p[k].numel() * 2 for k in
+                                ("gate", "up", "down")),
+            "rel_err": err, "tol": 8e-2, "shard_map_ms": ms_map,
+            "dense_ms": ms_dense}
+
+
+def _mesh_cluster(checks: dict) -> dict:
+    """The demo's 38-request trace on full-width qwen2-7b, hotmem under
+    the sync broker, on a host whose broker keeps two device columns
+    (``DeviceTopology.uniform(budget, 2)``, as ``--devices 2``)."""
+    cfg, params, spec = load_model(use_reduced=False, device=DEV)
+    topo = DeviceTopology.uniform(host_budget(spec, 1), 2)
+    t0 = time.perf_counter()
+    sched, _hosts, sim = build_cluster(cfg, params, spec, mode="hotmem",
+                                       async_mode=False, topology=topo)
+    m = sim.run(demo_requests(False), max_virtual_s=2000)
+    sched.check_invariants()
+    r = summarize("hotmem", sched, m)
+    cols = sched.brokers["h0"].ledger.device_report()
+    checks["sharded_host_completed_38"] = r["completed"] == 38
+    checks["sharded_host_steals"] = r["steals"] > 0
+    checks["sharded_host_migrated_0"] = r["migrated_bytes"] == 0
+    checks["sharded_host_columns_balanced"] = len(cols) == 2 \
+        and all(c == cols[0] for c in cols)
+    return {"completed": r["completed"], "steals": r["steals"],
+            "migrated_bytes": r["migrated_bytes"], "devices": cols,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_mesh(plain: dict, gen) -> dict:
+    """The sharding layer on the card, a world of one: NCCL bring-up
+    through ``launch/distributed.initialize`` on a loopback port, the
+    (1, 1) ("data", "model") host mesh, ``phase_train``'s run on it
+    (``plain`` is ``phase_train``'s figures), the reshard on load, the
+    MoE shard-map path at full width, and a sharded-host cluster run.
+    The process group is destroyed at the end, so later phases run as
+    before.  Multi-rank sharding is proven on the CPU
+    (``tests/test_torch_mesh.py``); NCCL takes one rank per card."""
+    t0 = time.perf_counter()
+    checks = {}
+    rank, world = distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        checks["nccl_world_of_one"] = (rank, world) == (0, 1) \
+            and dist.get_backend() == "nccl"
+        mesh = make_host_mesh()
+        checks["host_mesh_1x1"] = tuple(mesh.shape) == (1, 1) \
+            and mesh.mesh_dim_names == ("data", "model")
+        train_out, state = _mesh_train(mesh, checks, plain)
+        reshard = _mesh_reshard(mesh, state, checks)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = _mesh_moe(mesh, gen, checks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    cluster = _mesh_cluster(checks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"mesh": {"shape": [1, 1], "dims": ["data", "model"],
+                    "backend": "nccl"},
+           "train": train_out, "reshard": reshard, "moe": moe,
+           "sharded_host": cluster, "checks": checks,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "mesh", **out})
+    check(all(checks.values()), f"mesh checks {checks}")
     return out
 
 
@@ -2486,6 +2716,7 @@ def main() -> None:
         rows += more
     summary[VLM] = timed(VLM, phase_vlm)
     summary["train"] = timed("train", phase_train)
+    summary["mesh"] = timed("mesh", phase_mesh, summary["train"], gen)
     more, summary[AUDIO] = timed(AUDIO, phase_seamless, gen)
     rows += more
     summary["reference_max_abs_err"] = timed("reference", lambda: {

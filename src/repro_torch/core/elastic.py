@@ -194,12 +194,16 @@ class ElasticArena:
             units = self._grant(units)
         return self.absorb(units)
 
-    def absorb(self, units: int) -> float:
+    def absorb(self, units: int, shards: int = 1) -> float:
         """Grant-completion path: absorb ``units`` the host has *already*
         delivered, skipping the host gate.  Same device work as ``plug``:
         grow rows, zero-fill, hand back any units the manager can't
-        take.  (The engine keeps the vanilla mode off sharded hosts, so no
-        stripe check is needed here.)"""
+        take.  On a sharded host the delivered units are a whole stripe —
+        ``shards`` slabs land one per device, so the count must divide
+        evenly (the broker's coherent-claim path guarantees it; a bare
+        partial stripe here is a caller bug)."""
+        assert shards >= 1 and units % shards == 0, \
+            f"absorb of {units} units is not a whole {shards}-shard stripe"
         if units <= 0 or self.mode == "static":
             return 0.0
         t0 = time.perf_counter()

@@ -19,14 +19,20 @@ seed 0, an arena of 8 partitions of 2048 tokens) on the CUDA device;
 ``--reduced`` takes the reduced config and 128-token partitions, and
 ``--device cpu`` runs the kernels' plain versions.  All replicas of a run
 share one ``params`` dict, so the weights are on the device once.
-``--devices > 1`` is refused: one card is one device, and sharding a
-replica over several waits for ROADMAP item 13.
+``--devices N`` makes every host a sharded host: its broker keeps one
+ledger column per device (``DeviceTopology.uniform(budget, N)``), grants
+and reclaims stripe over them, and the table gains per-device occupancy
+lines.  As in the JAX demo, the engines still compute on one device, and
+vanilla's single-block plugs cannot stripe, so ``vanilla`` is refused
+with ``--devices > 1``.
 
   python -m repro_torch.launch.cluster_demo
   PYTHONPATH=src python -m repro_torch.launch.cluster_demo --reduced \\
       --device cpu --modes hotmem,vanilla
   PYTHONPATH=src python -m repro_torch.launch.cluster_demo --reduced \\
       --device cpu --hosts 2 --modes hotmem
+  PYTHONPATH=src python -m repro_torch.launch.cluster_demo --reduced \\
+      --device cpu --devices 2 --modes hotmem
   PYTHONPATH=src python -m repro_torch.launch.cluster_demo --scenario \\
       slo_tiered
 """
@@ -41,6 +47,7 @@ import numpy as np
 from repro_torch.cluster import (ClusterSim, FleetScheduler, FleetSim,
                                  HostMemoryBroker, Router)
 from repro_torch.cluster.router import POLICIES
+from repro_torch.cluster.topology import DeviceTopology
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core.arena import ArenaSpec
 from repro_torch.models import model as M
@@ -93,24 +100,30 @@ def pooled_policy(policy: str, hosts: int) -> bool:
                       "slo_tiered") or hosts > 1
 
 
+def host_budget(spec, hosts: int) -> int:
+    """Broker units per host: 10 partitions' worth on a single host (less
+    than two full arenas, so A's burst cannot grow without shrinking B),
+    a full arena's worth per host on a fleet."""
+    return (10 if hosts == 1 else 12) * spec.blocks_per_partition
+
+
 def build_cluster(cfg, params, spec, *, mode: str, async_mode: bool,
                   hosts: int = 1, policy: str = "pinned",
-                  page_size=None):
+                  page_size=None, topology=None):
     """The demo's hosts and replicas, ready to run: one broker per host
-    (10 partitions' worth on a single host — less than two full arenas,
-    so A's burst cannot grow without shrinking B; a full arena's worth
-    per host on a fleet), replicas placed by ``FleetScheduler`` spread
-    placement, every replica on the one ``params``.  Returns (scheduler,
-    {host: {replica: engine}}, sim)."""
+    (``host_budget`` units), replicas placed by ``FleetScheduler`` spread
+    placement, every replica on the one ``params``.  ``topology`` (a
+    ``DeviceTopology`` over the host budget) makes every host sharded.
+    Returns (scheduler, {host: {replica: engine}}, sim)."""
     bpp = spec.blocks_per_partition
     pool_units = 4 * bpp if pooled_policy(policy, hosts) else None
     rids = [chr(ord("A") + k) for k in range(max(2, hosts))]
-    budget = (10 if hosts == 1 else 12) * bpp
+    budget = host_budget(spec, hosts)
     sched = FleetScheduler()
     for k in range(hosts):
         sched.add_host(f"h{k}", HostMemoryBroker(
             budget_units=budget, async_reclaim=async_mode,
-            snapshot_pool_units=pool_units))
+            snapshot_pool_units=pool_units, topology=topology))
     start_units = min(2, spec.n_partitions) * bpp
     hosts_map = {h: {} for h in sched.brokers}
     for i, rid in enumerate(rids):
@@ -129,6 +142,19 @@ def build_cluster(cfg, params, spec, *, mode: str, async_mode: bool,
     else:
         sim = FleetSim(hosts_map, router, scheduler=sched)
     return sched, hosts_map, sim
+
+
+def device_report(sched) -> str:
+    """Per-device occupancy: free/granted/snapshot units on every device
+    of each host's mesh at the end of a run, one line per host."""
+    lines = []
+    for h, b in sorted(sched.brokers.items()):
+        occ = "  ".join(
+            f"d{d}[free={c['free']} granted={c['granted']} "
+            f"snap={c['snapshot']}]"
+            for d, c in enumerate(b.ledger.device_report()))
+        lines.append(f"{'':17s} {h}: {occ}")
+    return "\n".join(lines)
 
 
 def summarize(mode: str, sched, m: dict) -> dict:
@@ -232,8 +258,9 @@ def main(argv=None) -> None:
                          "per-host brokers and enables cross-host "
                          "snapshot migration (FleetSim)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices per host; only 1 (sharding a replica "
-                         "over several devices is ROADMAP item 13)")
+                    help="devices per host; > 1 stripes per-device "
+                         "broker budgets and prints per-device occupancy "
+                         "(hotmem only — vanilla cannot stripe)")
     ap.add_argument("--scenario", default=None,
                     help="run one scenario-bank entry and print its row")
     ap.add_argument("--autoscale", action="store_true",
@@ -250,12 +277,11 @@ def main(argv=None) -> None:
                     help="the reduced qwen2-7b with 128-token partitions")
     args = ap.parse_args(argv)
     assert args.hosts >= 1
+    assert args.devices >= 1
     assert args.page_size is None or args.page_size > 0
-    if args.devices != 1:
-        raise SystemExit(
-            f"--devices {args.devices}: the port runs a replica on one "
-            f"device; sharding it over a mesh waits for ROADMAP item 13 "
-            f"(launch and sharding onto torch.distributed)")
+    assert args.devices == 1 or "vanilla" not in args.modes.split(","), \
+        "--devices > 1 requires --modes without vanilla (single-block " \
+        "plugs cannot stripe over a mesh)"
 
     if args.autoscale:
         _autoscale_table(args.seed)
@@ -283,10 +309,13 @@ def main(argv=None) -> None:
           f"{'mig':>4s} {'squeezed':>8s}")
     for mode in args.modes.split(","):
         for async_mode in (False, True):
+            topo = DeviceTopology.uniform(
+                host_budget(spec, args.hosts), args.devices) \
+                if args.devices > 1 else None
             sched, _hosts, sim = build_cluster(
                 cfg, params, spec, mode=mode, async_mode=async_mode,
                 hosts=args.hosts, policy=args.policy,
-                page_size=args.page_size)
+                page_size=args.page_size, topology=topo)
             m = sim.run(demo_requests(pooled), max_virtual_s=2000)
             sched.check_invariants()
             r = summarize(mode, sched, m)
@@ -297,6 +326,8 @@ def main(argv=None) -> None:
                   f"{(r['latency_p99_s'] or 0):9.2f} {r['warm']:5d} "
                   f"{r['restore']:7d} {r['remote']:6d} {r['mig']:4d} "
                   f"{r['squeezed']:8d}")
+            if args.devices > 1:
+                print(device_report(sched))
 
 
 if __name__ == "__main__":

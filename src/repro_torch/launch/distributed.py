@@ -1,18 +1,46 @@
-"""Restart supervision and hedged dispatch (port of
-``repro.launch.distributed``).
+"""Multi-process bring-up, restart supervision and hedged dispatch (port
+of ``repro.launch.distributed``).
 
-``run_with_restarts`` is the supervision loop a cluster agent wraps around
-the trainer: bounded restarts, exponential backoff, resume always on.
-``hedged_dispatch`` is the serving-side straggler hedge the scenario bank
-(``repro_torch.cluster.scenarios``) uses.  Both are copies of the JAX
-package's functions.  Multi-process bring-up (the JAX package's
-``initialize``) is not here: it moves onto ``torch.distributed`` with the
-sharding work (ROADMAP item 13).
+``initialize`` brings up the default ``torch.distributed`` process group
+from the same environment variables as the JAX package's (``nccl`` on the
+card, ``gloo`` on the CPU); ``launch.mesh`` then lays its named dims over
+the world.  ``run_with_restarts`` is the supervision loop a cluster agent
+wraps around the trainer: bounded restarts, exponential backoff, resume
+always on.  ``hedged_dispatch`` is the serving-side straggler hedge the
+scenario bank (``repro_torch.cluster.scenarios``) uses.  Both are copies of
+the JAX package's functions.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable
+
+import torch
+import torch.distributed as dist
+
+
+def initialize(coordinator: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None,
+               device: str = "cuda") -> tuple[int, int]:
+    """``torch.distributed`` bring-up (no-op on one process).  Returns
+    (rank, world_size): the existing group's when one is up, (0, 1) when
+    there is neither a group nor a coordinator (``host:port``).  On the
+    card each rank takes the local device of its rank."""
+    coordinator = coordinator or os.environ.get("REPRO_COORDINATOR")
+    if coordinator and not dist.is_initialized():
+        world = num_processes \
+            or int(os.environ.get("REPRO_NUM_PROCESSES", "1"))
+        rank = process_id or int(os.environ.get("REPRO_PROCESS_ID", "0"))
+        if device == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo",
+            init_method=f"tcp://{coordinator}", world_size=world, rank=rank)
+    if not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
 
 
 def run_with_restarts(fn: Callable[[], None], *, max_restarts: int = 16,

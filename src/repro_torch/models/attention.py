@@ -19,11 +19,14 @@ tokens take ``_chunked_attention``, an online softmax over
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, f32, softcap)
+from repro_torch.sharding import P, current_ctx, local_blocks, shard, spec_for
 
 # chunked online-softmax attention at/above this length; the chunk sizes are
 # read at call time, so a test can patch them
@@ -107,6 +110,35 @@ def _chunked_attention(q, k, v, qpos, kpos, window, scale, cap):
     return out
 
 
+def _grouped(core, q, k, v, *rows):
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    out = core(q.reshape(b, s, hkv, hq // hkv, dh), k, v, *rows)
+    return out.reshape(b, s, hq * dh)
+
+
+def grouped_attention(core, q, k, v, *rows):
+    """``core(qg, k, v, *rows)`` over q (B,S,Hq,D) grouped as (B,S,Hkv,G,D)
+    and k/v (B,T,Hkv,D), returned as (B,S,Hq*D); ``rows`` are per-row
+    tensors (B, ...) such as the positions.
+
+    On a mesh each rank runs ``core`` on plain tensors, its own rows and
+    KV heads with their query groups (``sharding.local_blocks``):
+    attention needs no communication there, as GSPMD partitions it, and
+    DTensor's einsum cannot flatten a sharded head dim on every torch
+    version.  q's heads take k's ("kv_heads") sharding so that each group
+    stays whole."""
+    ctx = current_ctx()
+    if ctx is None:
+        return _grouped(core, q, k, v, *rows)
+    ks = spec_for(("batch", "seq", "kv_heads", None), tuple(k.shape), ctx)
+    return local_blocks(
+        partial(_grouped, core), (q, k, v) + rows,
+        (ks, ks, ks) + tuple(P(ks[0], *(None,) * (r.ndim - 1))
+                             for r in rows),
+        P(ks[0], None, ks[2]))
+
+
 def attention(cfg, p, x, *, positions, mode: str, cache=None,
               window: int = 0):
     """Returns (y, cache).  ``positions``: (B,S) [or (3,B,S) M-RoPE] int32
@@ -130,6 +162,11 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
     tok_pos = positions[0] if cfg.mrope_sections else positions
 
     if mode == "decode":
+        # heads stay replicated through decode attention: the cache is
+        # sequence-sharded over "model" under the serving rules
+        q = shard(q, "batch", None, None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
         t = cache["k"].shape[1]
         idx = torch.remainder(tok_pos, t).long()           # ring slot
         rows = torch.arange(b, device=x.device)
@@ -139,11 +176,16 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
             q.reshape(b, hkv, g, dh), cache["k"], cache["v"],
             tok_pos.to(torch.int32), window=window, logit_cap=cap,
             scale=scale)
-        return dense(p["o"], out.reshape(b, 1, hq * dh)), cache
+        out = shard(out.reshape(b, 1, hq * dh), "batch", "seq", None)
+        return dense(p["o"], out), cache
 
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     fn = _chunked_attention if s >= FLASH_SEQ else _plain_attention
-    out = fn(q.reshape(b, s, hkv, g, dh), k, v, tok_pos, tok_pos, window,
-             scale, cap)
+    out = grouped_attention(
+        lambda qg, k, v, pos: fn(qg, k, v, pos, pos, window, scale, cap),
+        q, k, v, tok_pos)
     if mode == "prefill":
         t = cache["k"].shape[1]
         for name, new in (("k", k), ("v", v)):
@@ -151,7 +193,8 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
                 cache[name][:, :s] = new
             else:                # ring: keep tail; global pos p -> slot p % t
                 cache[name].copy_(torch.roll(new[:, -t:], s % t, dims=1))
-    return dense(p["o"], out.reshape(b, s, hq * dh)), cache
+    out = shard(out, "batch", "seq", "heads")
+    return dense(p["o"], out), cache
 
 
 def make_attn_cache_spec(cfg, batch: int, cache_len: int, window: int = 0):

@@ -24,6 +24,7 @@ from repro_torch.models.layers import (apply_rope, bf16, dense, dense_spec,
                                        mlp, mlp_spec, norm_spec, rmsnorm,
                                        stack_specs)
 from repro_torch.models.transformer import _index, checkpointed, unstack
+from repro_torch.sharding import shard
 
 
 def _cross_attn_spec(cfg):
@@ -71,11 +72,10 @@ def dec_cache_specs(cfg, batch: int, cache_len: int):
 
 def _unmasked(cfg, q, k, v):
     """q (B,S,Hq,Dh) over every key of k/v (B,T,Hkv,Dh) -> (B,S,Hq*Dh)."""
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    b, s = q.shape[:2]
-    qg = q.reshape(b, s, hkv, hq // hkv, dh)
-    w = torch.softmax(_scores(qg, k, dh ** -0.5, 0.0), dim=-1)
-    return _weighted(v, w).reshape(b, s, hq * dh)
+    scale = cfg.head_dim ** -0.5
+    return attn_mod.grouped_attention(
+        lambda qg, k, v: _weighted(
+            v, torch.softmax(_scores(qg, k, scale, 0.0), dim=-1)), q, k, v)
 
 
 def _bidir_attention(cfg, p, x, positions):
@@ -92,6 +92,7 @@ def _bidir_attention(cfg, p, x, positions):
 def run_encoder(cfg, params, frames):
     """frames (B, src, D) stub embeddings -> encoder output (B, src, D)."""
     x = dense(params["src_proj"], frames.to(bf16))
+    x = shard(x, "batch", "src", "embed")
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     for p in unstack(params["blocks"], cfg.encoder_layers):

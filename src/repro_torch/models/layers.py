@@ -14,7 +14,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.sharding import (P, current_ctx, distribute, entry_axes,
+                                  is_dtensor, local_blocks, named_sharding,
+                                  psum, shard, spec_for)
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -129,15 +134,50 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator,
     return x.mul_(std).to(spec.dtype)
 
 
-def materialize(specs, seed: int = 0, *, device="cuda"):
+def materialize(specs, seed: int = 0, *, device="cuda", abstract=False,
+                mesh=None, rules=None):
     """Specs -> tensors on ``device``, drawn from one ``torch.Generator``
-    seeded with ``seed`` (on that device) in tree-flatten order."""
+    seeded with ``seed`` (on that device) in tree-flatten order.
+
+    With a ``mesh`` (a ``DeviceMesh``) and ``rules``, each leaf is drawn
+    in full from the same stream, then distributed onto its placements,
+    so a sharded init equals the unsharded one value for value.  With
+    ``abstract`` nothing is allocated: ``meta`` tensors (the twin of
+    ``jax.ShapeDtypeStruct``), DTensors of the global shape over ``meta``
+    blocks on a mesh."""
+    leaves, treedef = tree_flatten(specs)
+    if abstract:
+        return tree_unflatten(treedef, [_abstract_leaf(s, mesh, rules)
+                                        for s in leaves])
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    leaves, treedef = tree_flatten(specs)
-    return tree_unflatten(treedef,
-                          [_init_leaf(s, gen, device) for s in leaves])
+    out = []
+    for s in leaves:
+        x = _init_leaf(s, gen, device)
+        if mesh is not None:
+            x = distribute(x, named_sharding(s.axes, s.shape, mesh, rules))
+        out.append(x)
+    return tree_unflatten(treedef, out)
+
+
+def _abstract_leaf(spec: ParamSpec, mesh, rules) -> torch.Tensor:
+    if mesh is None:
+        return torch.empty(spec.shape, dtype=spec.dtype, device="meta")
+    from torch.distributed.tensor import DTensor
+    sh = named_sharding(spec.axes, spec.shape, mesh, rules)
+    local = torch.empty(sh.shard_shape(spec.shape), dtype=spec.dtype,
+                        device="meta")
+    return DTensor.from_local(local, mesh, sh.placements, run_check=False,
+                              shape=torch.Size(spec.shape),
+                              stride=torch.empty(spec.shape,
+                                                 device="meta").stride())
+
+
+def sharding_tree(specs, mesh, rules):
+    """``NamedSharding`` tree matching a materialized param tree."""
+    return tree_map_specs(
+        lambda s: named_sharding(s.axes, s.shape, mesh, rules), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +224,7 @@ def mlp_spec(cfg):
 
 def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     h = act_fn(cfg.act, dense(p["gate"], x)) * dense(p["up"], x)
+    h = shard(h, "batch", "seq", "mlp")
     return dense(p["down"], h)
 
 
@@ -251,7 +292,21 @@ def vocab_logit_bias(cfg) -> Optional[np.ndarray]:
 def cross_entropy(cfg, logits: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL in f32; logits (B, S, Vp) possibly vocab-padded and
-    softcapped (the cap is applied in the logits' dtype, then f32)."""
+    softcapped (the cap is applied in the logits' dtype, then f32).  On a
+    mesh whose rules shard the vocab over one axis, each rank works on
+    its own block of the vocab (``_vocab_block_nll``), as GSPMD
+    partitions it: the logits are never gathered."""
+    ctx = current_ctx()
+    if ctx is not None and is_dtensor(logits):
+        ls = spec_for(("batch", "seq", "vocab"), tuple(logits.shape), ctx)
+        axes = entry_axes(ls[2])
+        if axes:
+            # every rule table shards the vocab over one axis at most
+            assert len(axes) == 1, ls
+            rows = P(ls[0], ls[1])
+            return torch.mean(local_blocks(
+                lambda lg, lb: _vocab_block_nll(cfg, axes[0], lg, lb),
+                (logits, labels), (ls, rows), rows))
     logits = softcap(logits, cfg.final_logit_softcap).to(f32)
     bias = vocab_logit_bias(cfg)
     if bias is not None:
@@ -259,3 +314,30 @@ def cross_entropy(cfg, logits: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(logz - gold)
+
+
+def _vocab_block_nll(cfg, axis: str, logits: torch.Tensor,
+                     labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL from this rank's block of the vocab (plain tensors,
+    the vocab split over mesh ``axis``): the max and the sum of the
+    log-sum-exp and the gold logit each combined over ``axis``."""
+    ctx = current_ctx()
+    vb = logits.shape[-1]
+    v0 = ctx.mesh.get_local_rank(axis) * vb
+    logits = softcap(logits, cfg.final_logit_softcap).to(f32)
+    bias = vocab_logit_bias(cfg)
+    if bias is not None:
+        logits = logits + torch.from_numpy(bias[v0:v0 + vb]).to(
+            logits.device)
+    # the max only keeps exp() in range; its gradient cancels, so it is
+    # taken without one
+    top = logits.detach().amax(-1)
+    if ctx.shape[axis] > 1:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX,
+                        group=ctx.mesh.get_group(axis))
+    total = psum(torch.exp(logits - top[..., None]).sum(-1), axis)
+    idx = labels.long() - v0
+    mine = (idx >= 0) & (idx < vb)
+    gold = torch.gather(logits, -1, idx.clamp(0, vb - 1)[..., None])[..., 0]
+    gold = psum(torch.where(mine, gold, 0.0), axis)
+    return top + torch.log(total) - gold

@@ -10,6 +10,11 @@ with the JAX package's tree structure, so ``tree_flatten`` orders their
 leaves the same way and the snapshot blob layout carries over byte for
 byte.
 
+On a mesh, ``init_params(..., mesh=, rules=)`` returns DTensors with the
+same values, ``param_shardings``/``cache_shardings`` the placements, and
+``abstract_params``/``abstract_caches`` meta tensors (the JAX package's
+``ShapeDtypeStruct`` trees).
+
 Two differences from the JAX package, both about memory:
   * prefill, decode and the row writes update the cache tensors in place
     (JAX donates them to the next step; here there is no second copy);
@@ -25,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import materialize, tree_flatten, tree_map
+from repro_torch.models.layers import (materialize, sharding_tree,
+                                       tree_flatten, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -49,16 +55,39 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
     return transformer.decoder_cache_specs(cfg, batch, cache_len)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                mesh=None, rules=None):
     """Random parameters drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed`` (the JAX package's fan-in initialisation rule;
-    the numbers differ from ``jax.random``'s)."""
-    return materialize(param_specs(cfg), seed, device=device)
+    the numbers differ from ``jax.random``'s); with a ``mesh`` and
+    ``rules``, DTensors on the mesh with the same values."""
+    return materialize(param_specs(cfg), seed, device=device, mesh=mesh,
+                       rules=rules)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
                 device="cuda"):
     return materialize(cache_specs(cfg, batch, cache_len), device=device)
+
+
+def abstract_params(cfg: ModelConfig, mesh=None, rules=None):
+    return materialize(param_specs(cfg), abstract=True, mesh=mesh,
+                       rules=rules)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, cache_len: int, mesh=None,
+                    rules=None):
+    return materialize(cache_specs(cfg, batch, cache_len), abstract=True,
+                       mesh=mesh, rules=rules)
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules):
+    return sharding_tree(param_specs(cfg), mesh, rules)
+
+
+def cache_shardings(cfg: ModelConfig, batch: int, cache_len: int, mesh,
+                    rules):
+    return sharding_tree(cache_specs(cfg, batch, cache_len), mesh, rules)
 
 
 # ---------------------------------------------------------------------------

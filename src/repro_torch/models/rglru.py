@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamSpec, act_fn, bf16, dense,
                                        dense_spec, f32)
+from repro_torch.models.ssm import causal_conv
+from repro_torch.sharding import shard
 
 LRU_C = 8.0
 
@@ -44,10 +46,7 @@ def rglru_spec(cfg):
 
 
 def _conv(p, x):
-    w = p["w"].shape[0]
-    s = x.shape[1]
-    xp = F.pad(x, (0, 0, w - 1, 0))
-    return sum(xp[:, i:i + s] * p["w"][i] for i in range(w)) + p["b"]
+    return causal_conv(p, x, "lru")
 
 
 def _gates(p, x, nb):
@@ -95,6 +94,7 @@ def rglru_block(cfg, p, u, *, mode: str, cache=None):
 
     if mode in ("train", "prefill"):
         xc = _conv(p["conv"], x)
+        xc = shard(xc, "batch", "seq", "lru")
         a, bb = _lru_coeffs(p, xc, nb)                     # (B,S,W) f32
         h = linear_scan(a, bb)
         if mode == "prefill":

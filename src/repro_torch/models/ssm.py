@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamSpec, bf16, dense, dense_spec,
                                        f32, norm_spec, rmsnorm)
+from repro_torch.sharding import P, current_ctx, local_blocks, shard, spec_for
 
 
 def ssm_spec(cfg):
@@ -49,13 +50,28 @@ def ssm_spec(cfg):
     }
 
 
-def _causal_conv(p, x):
-    """Depthwise causal conv via shifted adds; x (B,S,C)."""
-    w = p["w"].shape[0]
+def _shifted_conv(w, b, x):
+    """Depthwise causal conv via shifted adds: w (W,C), b (C,), x (B,S,C)."""
     s = x.shape[1]
-    xp = F.pad(x, (0, 0, w - 1, 0))
-    y = sum(xp[:, i:i + s] * p["w"][i] for i in range(w))
-    return F.silu(y + p["b"])
+    xp = F.pad(x, (0, 0, w.shape[0] - 1, 0))
+    return sum(xp[:, i:i + s] * w[i] for i in range(w.shape[0])) + b
+
+
+def causal_conv(p, x, axis=None):
+    """``_shifted_conv`` with the channels on the logical ``axis``; on a
+    mesh each rank convolves its own rows and channels (no
+    communication), as GSPMD partitions it."""
+    ctx = current_ctx()
+    if ctx is None:
+        return _shifted_conv(p["w"], p["b"], x)
+    xs = spec_for(("batch", "seq", axis), tuple(x.shape), ctx)
+    return local_blocks(_shifted_conv, (p["w"], p["b"], x),
+                        (P(None, xs[2]), P(xs[2]), xs), xs)
+
+
+def _causal_conv(p, x, axis=None):
+    """Depthwise causal conv, then SiLU; x (B,S,C)."""
+    return F.silu(causal_conv(p, x, axis))
 
 
 def _conv_step(p, hist, xt):
@@ -116,6 +132,19 @@ def ssd_chunked(x, dt, A, B, C, h0):
     return y.to(x.dtype), h_prev
 
 
+def _ssd_blocks(x, dt, A, B, C, h0):
+    """``ssd_chunked`` over each rank's rows and SSM heads on a mesh."""
+    ctx = current_ctx()
+    if ctx is None:
+        return ssd_chunked(x, dt, A, B, C, h0)
+    xs = spec_for(("batch", "seq", "ssm_heads", None), tuple(x.shape), ctx)
+    bt, hs = xs[0], xs[2]
+    return local_blocks(
+        ssd_chunked, (x, dt, A, B, C, h0),
+        (xs, P(bt, None, hs), P(hs), xs, xs, P(bt, hs, None, None)),
+        (xs, P(bt, hs, None, None)))
+
+
 def ssm_block(cfg, p, u, *, mode: str, cache=None):
     """u (B,S,D) -> (y, cache); ``cache`` is updated in place."""
     b, s, _ = u.shape
@@ -130,15 +159,17 @@ def ssm_block(cfg, p, u, *, mode: str, cache=None):
     dt_raw = dense(p["dt"], u)
 
     if mode in ("train", "prefill"):
-        xc = _causal_conv(p["conv_x"], xr)
+        xc = _causal_conv(p["conv_x"], xr, "ssm_inner")
         Bc = _causal_conv(p["conv_B"], Br)
         Cc = _causal_conv(p["conv_C"], Cr)
         dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])
-        xh = xc.reshape(b, s, h, hd)
+        xh = shard(xc.reshape(b, s, h, hd), "batch", "seq", "ssm_heads",
+                   None)
         Bh = _broadcast_groups(Bc.reshape(b, s, g, ds), h)
         Ch = _broadcast_groups(Cc.reshape(b, s, g, ds), h)
         h0 = torch.zeros((b, h, hd, ds), dtype=f32, device=u.device)
-        y, h_final = ssd_chunked(xh, dt, A, Bh, Ch, h0)
+        # each rank scans its own rows and heads (no communication)
+        y, h_final = _ssd_blocks(xh, dt, A, Bh, Ch, h0)
         y = y + xh.to(f32) * p["D"][None, None, :, None]
         if mode == "prefill":
             w = cfg.ssm_conv_width

@@ -15,6 +15,8 @@ sandwich norms (``pn1``/``pn2``) follow the attention and the FFN when
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.utils.checkpoint
 
@@ -26,6 +28,8 @@ from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
                                        mlp_spec, norm_spec, padded_vocab,
                                        rmsnorm, softcap, stack_specs,
                                        tree_flatten, tree_unflatten)
+from repro_torch.sharding import (P, current_ctx, local_blocks, shard,
+                                  spec_for, use_ctx)
 
 ATTN_KINDS = ("attn", "local", "global")
 KINDS = ATTN_KINDS + ("ssm", "rglru")
@@ -147,9 +151,13 @@ def checkpointed(fn, x):
     """``fn(x)`` under activation checkpointing, the twin of the JAX
     package's ``jax.checkpoint(..., nothing_saveable)``: only ``x`` is
     kept for the backward pass, and ``fn`` runs again to rebuild the rest.
-    The model draws no random numbers, so no RNG state is kept."""
+    The model draws no random numbers, so no RNG state is kept.  The
+    rebuild runs under the sharding context of the forward (on the card
+    it runs on the autograd thread, which does not see the caller's)."""
+    ctx = current_ctx()
     return torch.utils.checkpoint.checkpoint(
-        fn, x, use_reentrant=False, preserve_rng_state=False)
+        fn, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), use_ctx(ctx)))
 
 
 def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
@@ -168,7 +176,10 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
             for kind, p, c in zip(cfg.block_pattern, gp, gc):
                 h = block_forward(cfg, kind, p, h, mode=mode, cache=c,
                                   positions=positions)
-            return h
+            # the group boundary is what remat saves; "seq_remat" (None by
+            # default) lets wide models store it seq-sharded
+            return shard(h, "batch", "seq" if caches is not None
+                         else "seq_remat", "embed")
         x = checkpointed(group, x) if remat else group(x)
     for i, kind in enumerate(cfg.tail_pattern):
         c = caches["tail"][i] if caches is not None else None
@@ -178,15 +189,32 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
 
 
 def embed_tokens(cfg, embed_params, tokens, vision_embeds=None):
-    x = embed_params["tok"][tokens]
-    if cfg.scale_embeddings:
-        # the scale is rounded to the activation dtype first, as the JAX
-        # package computes it (sqrt(2560) is 50.5 in bf16)
-        x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype,
-                                        device=x.device))
-    if vision_embeds is not None:      # stub patches over the first tokens
-        x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
-    return x
+    def lookup(table, ids, *vision):
+        x = table[ids]
+        if cfg.scale_embeddings:
+            # the scale is rounded to the activation dtype first, as the
+            # JAX package computes it (sqrt(2560) is 50.5 in bf16)
+            x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
+                                            dtype=x.dtype, device=x.device))
+        if vision:                     # stub patches over the first tokens
+            x[:, :vision[0].shape[1]] = vision[0].to(x.dtype)
+        return x
+
+    vision = () if vision_embeds is None else (vision_embeds,)
+    ctx = current_ctx()
+    if ctx is None:
+        return lookup(embed_params["tok"], tokens, *vision)
+    # on a mesh each rank looks up its own rows of ids in the gathered
+    # table (the gather is FSDP's; DTensor's index strategy rejects ids
+    # sharded over two mesh dims)
+    rows = spec_for(("batch", "seq"), tuple(tokens.shape), ctx)
+    out = spec_for(("batch", "seq", "embed"),
+                   tuple(tokens.shape) + (cfg.d_model,), ctx)
+    table = shard(embed_params["tok"], None, None)
+    return local_blocks(lookup, (table, tokens, *vision),
+                        (P(None, None), rows)
+                        + tuple(P(rows[0], None, out[2]) for _ in vision),
+                        out)
 
 
 def lm_logits(cfg, embed_params, x):
@@ -194,5 +222,6 @@ def lm_logits(cfg, embed_params, x):
         logits = x @ embed_params["tok"].T
     else:
         logits = dense(embed_params["lm_head"], x)
-    return softcap(logits, cfg.final_logit_softcap)
+    logits = softcap(logits, cfg.final_logit_softcap)
+    return shard(logits, "batch", "seq", "vocab")
 

@@ -678,8 +678,13 @@ class ServeEngine:
         already-claimed grant fill) + row sync + virtual-clock charge +
         event log.  Returns native units actually added."""
         before = self.arena.units()
+        # absorb path: the claimed fill is a whole stripe (claim_grant only
+        # releases coherent units); hotmem's native unit is a partition,
+        # which stripes wholly, so only vanilla's block granules need the
+        # stripe check — and vanilla is asserted off for sharded hosts.
         wall = self.arena.plug(native) if via_gate \
-            else self.arena.absorb(native)
+            else self.arena.absorb(
+                native, shards=self._n_dev if self.mode == "vanilla" else 1)
         added = self.arena.units() - before
         if added:
             t0 = time.perf_counter()

@@ -14,8 +14,12 @@ torch's ``int16`` view, the JAX package reads them back with ``ml_dtypes``.
 
 ``save`` copies every leaf to host memory on the calling thread before the
 writer starts, so an async save is not raced by the next step's in-place
-update.  ``restore`` takes a ``device`` where the JAX package takes target
-shardings (a sharded restore waits for ROADMAP item 13).
+update.  A DTensor leaf is gathered whole (``full_tensor``, a collective:
+every rank calls ``save``), and the rank numbered ``process_index`` writes
+the file.  Restore is mesh-agnostic: leaves are loaded on the host and
+distributed onto the *target* ``placements`` (a tree of
+``sharding.NamedSharding`` like the state, ``None`` for a plain leaf), so a
+checkpoint taken on mesh A restores onto mesh B, or onto no mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +32,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding import distribute, is_dtensor
 
 
 def _flatten(tree, prefix=""):
@@ -53,8 +60,10 @@ def _unflatten_into(template, flat: dict[str, torch.Tensor], prefix=""):
 
 
 def _encode(x) -> tuple[str, np.ndarray]:
-    """A leaf (tensor or numpy array) -> (key suffix, a host copy npz can
-    store): bf16 as its uint16 bits with the ``::bf16`` marker."""
+    """A leaf (tensor, DTensor or numpy array) -> (key suffix, a host copy
+    npz can store): bf16 as its uint16 bits with the ``::bf16`` marker."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -75,13 +84,18 @@ def _decode(key: str, arr: np.ndarray) -> tuple[str, torch.Tensor]:
 
 def save(ckpt_dir: str, step: int, state, *, process_index: int = 0,
          blocking: bool = True) -> threading.Thread:
-    """Write one host's shard + manifest; async when blocking=False."""
+    """Write one host's shard + manifest; async when blocking=False.  In
+    a process group every rank gathers, and only the rank numbered
+    ``process_index`` writes (the others' thread has nothing to do)."""
     arrays = {}
     for k, v in _flatten(state):
         suffix, enc = _encode(v)
         arrays[k + suffix] = enc
+    writer = not dist.is_initialized() or dist.get_rank() == process_index
 
     def _write():
+        if not writer:
+            return
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
         final = os.path.join(ckpt_dir, f"step_{step}")
         os.makedirs(tmp, exist_ok=True)
@@ -113,14 +127,21 @@ def latest(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template, *, device=None,
-            process_index: int = 0):
+def restore(ckpt_dir: str, step: int, template, *, placements=None,
+            device=None, process_index: int = 0):
     """Load into the template's structure as tensors, on ``device`` when
-    given (else on the CPU)."""
+    given (else on the CPU); reshard onto ``placements`` when given (a
+    tree like the template whose leaves are ``NamedSharding`` records or
+    ``None``) — elastic mesh changes.  A leaf with a sharding lands on its
+    mesh's device type, each rank holding its own block."""
     path = os.path.join(ckpt_dir, f"step_{step}",
                         f"shard_{process_index}.npz")
     with np.load(path) as z:
         flat = dict(_decode(k, z[k]) for k in z.files)
     if device is not None:
         flat = {k: v.to(device) for k, v in flat.items()}
+    if placements is not None:
+        for k, sh in _flatten(placements):
+            if sh is not None:
+                flat[k] = distribute(flat[k].to(sh.mesh.device_type), sh)
     return _unflatten_into(template, flat)

@@ -16,6 +16,7 @@ import torch
 from repro_torch.models.layers import (cross_entropy, f32, tree_flatten,
                                        tree_map, tree_unflatten)
 from repro_torch.models.model import forward_train
+from repro_torch.sharding import is_dtensor, shard
 from repro_torch.training.optimizer import AdamWConfig, apply_updates
 
 
@@ -25,11 +26,20 @@ def _loss_fn(cfg, params, batch, remat: bool = True):
 
 
 def _split_micro(batch, accum: int):
-    """(B, ...) -> (A, B/A, ...) for every leaf."""
+    """(B, ...) -> (A, B/A, ...) for every leaf.  On a mesh the batch
+    comes back sharded on the micro-batch's rows: the (small) batch is
+    gathered, reshaped and sharded on its second dim, since a reshape of
+    a dim sharded over several ranks into (A, B/A) would put the shards
+    on A."""
     def sp(x):
         b = x.shape[0]
         assert b % accum == 0, (b, accum)
-        return x.reshape((accum, b // accum) + tuple(x.shape[1:]))
+        shape = (accum, b // accum) + tuple(x.shape[1:])
+        if not is_dtensor(x):
+            return x.reshape(shape)
+        rest = (None,) * (x.ndim - 1)
+        return shard(shard(x, None, *rest).reshape(shape), None, "batch",
+                     *rest)
     # frames/vision leaves reshape on batch too; positions built inside
     return tree_map(sp, batch)
 

@@ -99,11 +99,6 @@ def test_crash_resume_continuity(tmp_path):
     assert int(resumed["opt"]["step"]) == int(clean["opt"]["step"]) == 12
 
 
-def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train("qwen2-1.5b", steps=1, mesh=object(), device="cpu")
-
-
 @pytest.fixture(scope="module")
 def jax_state():
     """Reduced tinyllama after one JAX train step: bf16 params, f32 norm

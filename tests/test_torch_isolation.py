@@ -88,10 +88,12 @@ def _functions(path: Path) -> dict[str, str]:
 def test_distributed_keeps_its_functions_verbatim(name):
     """``launch/distributed.py`` is an adapted copy: the two functions it
     keeps equal their JAX package source, and ``initialize`` (which
-    imports JAX) stays out until it moves onto ``torch.distributed``."""
+    brings up JAX's distributed runtime there) is the port's own, on
+    ``torch.distributed``."""
     rel = "launch/distributed.py"
     port = _functions(PORT / rel)
-    assert set(port) == {"run_with_restarts", "hedged_dispatch"}
+    assert set(port) == {"initialize", "run_with_restarts",
+                         "hedged_dispatch"}
     assert port[name] == _functions(SRC / "repro" / rel)[name]
 
 
@@ -101,6 +103,8 @@ def test_distributed_keeps_its_functions_verbatim(name):
                                  "kernels/kv_snapshot.py",
                                  "kernels/kv_compact.py",
                                  "models/encdec.py", "models/model.py",
+                                 "models/moe.py", "models/attention.py",
+                                 "sharding.py", "launch/mesh.py",
                                  "models/transformer.py",
                                  "training/optimizer.py",
                                  "training/train_step.py",

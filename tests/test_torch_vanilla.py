@@ -397,6 +397,23 @@ def test_vanilla_arena_shrink_matches_jax(seed, n_live):
     ta.manager.check_invariants()
 
 
+def test_absorb_takes_whole_stripes_only():
+    """``absorb(units, shards)`` carries the JAX signature and its assert:
+    units delivered to a sharded host land as a whole stripe, one slab
+    per device; a partial stripe is a caller bug, in both packages."""
+    ja, ta = _arenas(5)
+    for arena in (ja, ta):
+        arena.unplug(16)
+        with pytest.raises(AssertionError, match="not a whole 2-shard"):
+            arena.absorb(3, shards=2)
+    before = ta.units()
+    ja.absorb(4, shards=2)
+    ta.absorb(4, shards=2)
+    assert ta.units() == ja.units() == before + 4
+    for x, y in zip(ta.caches, ja.caches):
+        assert _bytes(x) == _bytes(y)
+
+
 def test_vanilla_unplug_grows_with_occupancy():
     """``tests/test_elastic.py``'s Fig. 6 statement through the port's
     arena: migration volume rises with occupancy, HotMem stays at zero."""
