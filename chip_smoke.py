@@ -28,7 +28,11 @@ qwen2-1.5b through ``launch/train.py``; then the sharding layer on a world
 of one (NCCL, the (1, 1) host mesh): the same training on the mesh, its
 losses held to the unsharded run's, a reshard on load, one full-width
 mixtral MoE layer through the shard-map path against the dense one, and
-the cluster demo's trace on a two-device sharded host; then full-width
+the cluster demo's trace on a two-device sharded host; then the analysis
+tools: the roofline of the measured qwen2-7b decode step and tinyllama
+train step (``repro_torch.roofline``) beside their measured times, and the
+dry run of two cells and the hill-climb's int8 pair on this machine's
+torch (``launch/dryrun.py``, in a subprocess); then full-width
 seamless-m4t-medium at the model level: the snapshot kernels over its
 self and cross K/V, ``partition_attention`` at its head dim 64, the encoder
 over stub frames, prefill, decode against the train forward and a train
@@ -50,6 +54,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -71,7 +76,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import roofline  # noqa: E402
 from repro_torch.cluster.host import HostMemoryBroker  # noqa: E402
 from repro_torch.cluster.topology import DeviceTopology  # noqa: E402
-from repro_torch.configs.base import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import (ShapeCell, get_config,  # noqa: E402
+                                      reduced)
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
 from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
@@ -81,8 +87,10 @@ from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
                                              load_model, summarize)
 from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
-from repro_torch.launch import distributed  # noqa: E402
+from repro_torch.launch import distributed, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.specs import (batch_specs,  # noqa: E402
+                                      train_state_specs)
 from repro_torch.launch.train import (batch_to_mesh, make_batch,  # noqa: E402
                                       scalar, state_shardings, train)
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -2683,6 +2691,152 @@ def phase_train_reference(arch: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The analysis phase: the roofline of the steps measured above, and the dry
+# run on this machine's torch
+# ---------------------------------------------------------------------------
+
+PROFILE_CELL = ShapeCell("profile", "decode", PARTITION_TOKENS, N_PARTITIONS)
+PROFILE_POSITION = PARTITION_TOKENS // 2        # phase_profile's position
+TRAIN_CELL = ShapeCell("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+BOUND_SHARE = 0.95      # a measured time below 0.95 x its bound is a fault
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("tinyllama-1.1b", "train_4k"))
+DRYRUN_TAGS = ("C0-baseline", "C1-int8-weights")
+DRYRUN_TIMEOUT_S = 300
+
+_DRYRUN = r"""
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.hillclimb import experiments
+cells, tags = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+recs = [run_cell(a, s, verbose=False) for a, s in cells]
+recs += [run_cell(a, s, verbose=False, **kw) for a, s, kw in experiments()
+         if kw["tag"] in tags]
+for r in recs:
+    r.pop("traceback", None)
+print(json.dumps(recs))
+"""
+
+
+def _decode_bytes(cfg, cell, position: int) -> float:
+    """HBM bytes the decode step at ``position`` must move on one card:
+    ``roofline.hbm_traffic_model``'s count (every weight, the whole cache,
+    the logits) less what the step does not read, which that model (the
+    dry run's, as the reference counts it) keeps: the embedding table but
+    the looked-up rows (an untied table; a tied one is read whole by the
+    head), and the ring slots past ``position``, which the attention
+    kernel skips."""
+    tok = M.param_specs(cfg)["embed"]["tok"]
+    skipped = 0.0
+    if not cfg.tie_embeddings:
+        skipped += (tok.shape[0] - cell.global_batch) * tok.shape[1] \
+            * tok.dtype.itemsize
+    cache = roofline.tree_bytes_per_chip(M.cache_specs(
+        cfg, cell.global_batch, cell.seq_len), None, {})
+    skipped += cache * (1 - min(position + 1, cell.seq_len) / cell.seq_len)
+    return roofline.hbm_traffic_model(cfg, cell, None, {}) - skipped
+
+
+def _step_roofline(cfg, cell, step, hbm_bytes=None) -> dict:
+    """The roofline of one step on one card: FLOPs from ``step`` run once
+    on meta tensors under ``roofline.cost_analysis``; HBM bytes
+    ``hbm_bytes``, by default ``roofline.hbm_traffic_model`` on no mesh;
+    no collectives."""
+    with roofline.cost_analysis() as cost:
+        step()
+    flops = roofline.cost_flops_bytes(cost)[0]
+    model_bytes = roofline.hbm_traffic_model(cfg, cell, None, {})
+    rl = roofline.Roofline(
+        flops=flops, hbm_bytes=model_bytes if hbm_bytes is None
+        else hbm_bytes, coll_bytes=0.0,
+        model_flops=roofline.model_flops_per_chip(cfg, cell, 1))
+    d = rl.as_dict()
+    return {"flops": rl.flops, "hbm_bytes": rl.hbm_bytes,
+            "traffic_model_bytes": model_bytes,
+            "model_flops": rl.model_flops, "compute_ms": d["compute_s"] * 1e3,
+            "memory_ms": d["memory_s"] * 1e3,
+            "step_bound_ms": d["step_s"] * 1e3, "bound": d["bound"],
+            "useful_ratio": d["useful_ratio"]}
+
+
+def phase_analysis(profile: dict, train: dict) -> dict:
+    """(a) The roofline of the two steps this run measured (the qwen2-7b
+    ``profile`` decode step, 8 rows of 2048 slots at position 1024, and
+    the tinyllama-1.1b ``train`` step, 8 x 1024 tokens with remat), beside
+    their measured device and wall times: a device time below
+    ``BOUND_SHARE`` of the bound would beat the card, so the count or the
+    constants would be wrong.  (b) The dry run on this machine's torch, in
+    a process of its own (torch's fake process group is process-wide; the
+    card stays hidden from it): ``run_cell`` for ``DRYRUN_CELLS`` on the
+    16 x 16 mesh and the hill-climb's ``DRYRUN_TAGS``; each must be traced
+    (``ok``), fit the card's memory, count collectives, and int8 weights
+    must lower the memory term."""
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    params, caches = M.abstract_params(cfg), M.abstract_caches(
+        cfg, PROFILE_CELL.global_batch, PROFILE_CELL.seq_len)
+    toks = torch.empty((N_PARTITIONS, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((N_PARTITIONS,), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        steps = {"profile": _step_roofline(
+            cfg, PROFILE_CELL,
+            lambda: M.decode_step(cfg, params, toks, pos, caches),
+            _decode_bytes(cfg, PROFILE_CELL, PROFILE_POSITION))}
+    tcfg = get_config(TRAIN_ARCH)
+    state = train_state_specs(tcfg, None, None)
+    batch = batch_specs(tcfg, TRAIN_CELL, None, None, labels=True)
+    steps["train"] = _step_roofline(
+        tcfg, TRAIN_CELL, lambda: make_train_step(tcfg)(state, batch))
+    del params, caches, state, batch
+    checks = {}
+    for name, measured in (("profile", profile), ("train", train)):
+        st = steps[name]
+        st["config"] = cfg.name if name == "profile" else tcfg.name
+        st["device_ms"] = measured["device_busy_ms_per_step"]
+        st["wall_ms"] = measured["step_ms_median"]
+        st["device_over_bound"] = st["device_ms"] / st["step_bound_ms"]
+        st["wall_over_bound"] = st["wall_ms"] / st["step_bound_ms"]
+        checks[f"{name}_device_at_least_bound"] = \
+            st["device_ms"] >= BOUND_SHARE * st["step_bound_ms"]
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), CUDA_VISIBLE_DEVICES="")
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _DRYRUN, json.dumps(DRYRUN_CELLS),
+         json.dumps(DRYRUN_TAGS)], env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT_S)
+    check(res.returncode == 0, f"dry run: {res.stderr[-3000:]}")
+    recs = json.loads(res.stdout.strip().splitlines()[-1])
+    dry = [{"arch": r["arch"], "shape": r["shape"], "tag": r.get("tag", ""),
+            "ok": r["ok"], "error": r.get("error"),
+            "fits_hbm": r.get("fits_hbm"), "grad_accum": r.get("grad_accum"),
+            "peak_bytes": r.get("memory", {}).get("peak_bytes"),
+            "collective_bytes": r.get("collectives", {}).get("total_bytes"),
+            "collectives": r.get("collectives", {}).get("bytes_by_op"),
+            "roofline": r.get("roofline"), "wall_s": r.get("wall_s")}
+           for r in recs]
+    for r in dry:
+        key = f"{r['arch']}/{r['shape']}{'/' + r['tag'] if r['tag'] else ''}"
+        checks[f"{key}_ok"] = bool(r["ok"])
+        checks[f"{key}_fits_hbm"] = bool(r["fits_hbm"])
+        checks[f"{key}_collectives"] = bool(r["collective_bytes"])
+    by_tag = {r["tag"]: r for r in dry if r["tag"]}
+    checks["int8_weights_lower_memory_s"] = bool(
+        by_tag[DRYRUN_TAGS[1]]["ok"] and by_tag[DRYRUN_TAGS[0]]["ok"]
+        and by_tag[DRYRUN_TAGS[1]]["roofline"]["memory_s"]
+        < by_tag[DRYRUN_TAGS[0]]["roofline"]["memory_s"])
+    out = {"steps": steps, "dryrun": dry,
+           "card_total_memory": torch.cuda.get_device_properties(0)
+           .total_memory, "dryrun_hbm_per_chip": dryrun.HBM_PER_CHIP,
+           "dryrun_seconds": time.perf_counter() - t1, "checks": checks,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "analysis", **out})
+    bad = [k for k, v in checks.items() if not v]
+    check(not bad, f"analysis checks failed: {bad}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2717,6 +2871,8 @@ def main() -> None:
     summary[VLM] = timed(VLM, phase_vlm)
     summary["train"] = timed("train", phase_train)
     summary["mesh"] = timed("mesh", phase_mesh, summary["train"], gen)
+    summary["analysis"] = timed("analysis", phase_analysis, summary,
+                                summary["train"])
     more, summary[AUDIO] = timed(AUDIO, phase_seamless, gen)
     rows += more
     summary["reference_max_abs_err"] = timed("reference", lambda: {

@@ -1,9 +1,11 @@
 """Dispatch wrappers over the port's kernels, their launch counters and the
 kernel loader.
 
-Each wrapper runs the kernel's plain PyTorch version (``ref``) when its
-tensors lie on the CPU, and otherwise launches the hand-written CUDA kernel
-or raises: there is no fallback from the card to the plain version.  Each
+Each wrapper launches the hand-written CUDA kernel when its tensors lie on
+the card, or raises: there is no fallback from the card to the plain
+version.  Elsewhere it runs the kernel's plain PyTorch version (``ref``):
+on the CPU, and on ``meta`` tensors, which carry shapes only and run
+nothing (the analysis tools trace the model on them).  Each
 wrapper adds one to its entry of ``LAUNCHES`` where it launches its kernel,
 and nowhere else, so a run can show that it went through the kernels.
 
@@ -78,7 +80,7 @@ def partition_attention(q, k_cache, v_cache, positions, *, window=0,
                         logit_cap=0.0, scale=None):
     """q (P, Hkv, G, Dh); k/v_cache (P, T, Hkv, Dh); positions (P,) int32.
     Returns (P, Hkv, G, Dh)."""
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":
         return ref.partition_attention(q, k_cache, v_cache, positions,
                                        window=window, logit_cap=logit_cap,
                                        scale=scale)
@@ -93,7 +95,7 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
                     logit_cap=0.0, scale=None):
     """q (P, Hkv, G, Dh); k/v_pool (NB, BT, Hkv, Dh); tables (P, MB) int32
     (-1 = unmapped); positions (P,) int32.  Returns (P, Hkv, G, Dh)."""
-    if q.device.type == "cpu":
+    if q.device.type != "cuda":
         return ref.paged_attention(q, k_pool, v_pool, tables, positions,
                                    logit_cap=logit_cap, scale=scale)
     out = _paged.paged_attention(load(), q, k_pool, v_pool, tables,
@@ -131,7 +133,7 @@ def snapshot_capture(leaves, rows, *, layout):
     leaves = tuple(leaves)
     rows = _checked_rows(leaves, rows, layout)
     dev = leaves[0].device
-    if dev.type == "cpu":
+    if dev.type != "cuda":
         return ref.snapshot_capture(leaves, torch.tensor(rows), layout)
     blob = _kvs.snapshot_capture(load(), leaves, _device_i32(rows, dev),
                                  layout=layout)
@@ -145,7 +147,7 @@ def snapshot_restore(leaves, blob, rows, *, layout):
     leaves = tuple(leaves)
     rows = _checked_rows(leaves, rows, layout)
     dev = leaves[0].device
-    if dev.type == "cpu":
+    if dev.type != "cuda":
         return tuple(ref.snapshot_restore(leaves, blob, torch.tensor(rows),
                                           layout))
     _kvs.snapshot_restore(load(), leaves, blob, _device_i32(rows, dev),
@@ -192,7 +194,7 @@ def kv_compact(pools, src, dst, count=None):
     s, d = _live_moves(src, dst, count, pools[0].shape[0])
     if not s:
         return pools
-    if pools[0].device.type == "cpu":
+    if pools[0].device.type != "cuda":
         si, di = torch.tensor(s), torch.tensor(d)
         for pool in pools:
             ref.kv_compact(pool, si, di, len(s))

@@ -16,17 +16,27 @@ def _softcap(x, cap):
 
 
 def partition_attention(q, k_cache, v_cache, positions, *, window: int = 0,
-                        logit_cap: float = 0.0, scale: float | None = None):
+                        logit_cap: float = 0.0, scale: float | None = None,
+                        off: int = 0, t: int | None = None,
+                        partials: bool = False):
     """Decode attention over contiguous (HotMem partition) KV rows.
 
     q: (P, Hkv, G, Dh); k/v_cache: (P, T, Hkv, Dh) ring caches;
     positions: (P,) global position of the current token (already written).
     Returns (P, Hkv, G, Dh) in the dtype of ``v_cache``.
+
+    The rows may be a block of a larger ring: slots [off, off + T) of
+    ``t`` (default: the whole ring).  With ``partials`` the result is the
+    block's softmax partials, all f32: the max (P, Hkv, G), the normaliser
+    (P, Hkv, G) and the unnormalised output (P, Hkv, G, Dh), which blocks
+    merge as sum(acc * e) / sum(l * e) with e = exp(max - the blocks' max).
     """
-    t = k_cache.shape[1]
+    tb = k_cache.shape[1]
+    t = tb if t is None else t
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    slots = torch.arange(t, dtype=torch.int64, device=q.device)[None, :]
+    slots = off + torch.arange(tb, dtype=torch.int64,
+                               device=q.device)[None, :]
     pos = positions.to(torch.int64)[:, None]
     # torch.remainder is a floor modulo, like jnp's %
     gidx = pos - torch.remainder(pos - slots, t)
@@ -36,6 +46,11 @@ def partition_attention(q, k_cache, v_cache, positions, *, window: int = 0,
     s = torch.einsum("bkgd,btkd->bkgt", q.to(f32), k_cache.to(f32)) * scale
     s = _softcap(s, logit_cap)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if partials:
+        top = s.amax(-1)
+        e = torch.exp(s - top[..., None])
+        return top, e.sum(-1), torch.einsum("bkgt,btkd->bkgd", e,
+                                            v_cache.to(f32))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype), v_cache)
 

@@ -12,21 +12,32 @@ cache tensors, decode writes the new K/V slot into them) and the same cache
 dict is returned: the engine owns one copy of the arena and never pays a
 second one per step.  Decode attention runs through
 ``kernels.ops.partition_attention`` — the hand-written kernel on the card,
-its plain version on the CPU.  Train and prefill at or above ``FLASH_SEQ``
-tokens take ``_chunked_attention``, an online softmax over
-``Q_CHUNK`` x ``KV_CHUNK`` tiles that never builds an S x S score matrix
-(plain torch, as the JAX package's is pure jnp).
+its plain version on the CPU and on meta tensors.  Train and prefill at or
+above ``FLASH_SEQ`` tokens take ``_chunked_attention``, an online softmax
+over ``Q_CHUNK`` x ``KV_CHUNK`` tiles that never builds an S x S score
+matrix (plain torch, as the JAX package's is pure jnp), except under
+``tracemode.analysis_mode``, which counts the plain path.
+
+On a mesh the serving rules split each cache on "kv_seq".  Prefill and
+decode then run per rank on the rank's block (``sharding.local_blocks``):
+each rank writes the slots it holds, and decode merges the ranks' partial
+softmaxes over the "kv_seq" axes (``_decode_block``), as GSPMD partitions
+the reference's decode attention.
 """
 from __future__ import annotations
 
 from functools import partial
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, f32, softcap)
-from repro_torch.sharding import P, current_ctx, local_blocks, shard, spec_for
+from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
+                                  is_dtensor, local_blocks, psum, shard,
+                                  spec_for, split_last)
+from repro_torch.tracemode import is_analysis
 
 # chunked online-softmax attention at/above this length; the chunk sizes are
 # read at call time, so a test can patch them
@@ -47,10 +58,6 @@ def attn_spec(cfg):
                         bias=cfg.qkv_bias),
         "o": dense_spec(hq * dh, cfg.d_model, ("heads", "w_embed")),
     }
-
-
-def _split_heads(x, n, d):
-    return x.reshape(x.shape[:-1] + (n, d))
 
 
 def _scores(q, k, scale, cap):
@@ -152,15 +159,20 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
 
     rope_pos = positions if mode != "decode" else (
         positions[..., None])  # (B,1) / (3,B,1)
-    q = _split_heads(dense(p["q"], x), hq, dh)
-    k = _split_heads(dense(p["k"], x), hkv, dh)
-    v = _split_heads(dense(p["v"], x), hkv, dh)
+    q = split_last(dense(p["q"], x), hq, dh)
+    k = split_last(dense(p["k"], x), hkv, dh)
+    v = split_last(dense(p["v"], x), hkv, dh)
     q = apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     # the mask, the cache slot and the kernel read the token index, which
     # is M-RoPE's first (temporal) section
     tok_pos = positions[0] if cfg.mrope_sections else positions
 
+    ctx = current_ctx()
+    cs = spec_for(("batch", "kv_seq", "kv_heads", None),
+                  tuple(cache["k"].shape), ctx) \
+        if ctx is not None and cache is not None \
+        and is_dtensor(cache["k"]) else P(None, None, None, None)
     if mode == "decode":
         # heads stay replicated through decode attention: the cache is
         # sequence-sharded over "model" under the serving rules
@@ -168,33 +180,102 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
         k = shard(k, "batch", None, None, None)
         v = shard(v, "batch", None, None, None)
         t = cache["k"].shape[1]
-        idx = torch.remainder(tok_pos, t).long()           # ring slot
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
-        out = ops.partition_attention(
-            q.reshape(b, hkv, g, dh), cache["k"], cache["v"],
-            tok_pos.to(torch.int32), window=window, logit_cap=cap,
-            scale=scale)
+        qs, ns = P(cs[0], cs[2], None, None), P(cs[0], cs[2], None)
+        out = local_blocks(
+            partial(_decode_block, t=t, axes=entry_axes(cs[1]),
+                    window=window, scale=scale, cap=cap),
+            (q.reshape(b, hkv, g, dh), k[:, 0], v[:, 0], cache["k"],
+             cache["v"], tok_pos), (qs, ns, ns, cs, cs, P(cs[0])), qs)
         out = shard(out.reshape(b, 1, hq * dh), "batch", "seq", None)
         return dense(p["o"], out), cache
 
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv_heads", None)
     v = shard(v, "batch", "seq", "kv_heads", None)
-    fn = _chunked_attention if s >= FLASH_SEQ else _plain_attention
+    # analysis traces count the plain path's FLOPs (the same as the
+    # chunked path's) without its loops
+    fn = _chunked_attention if s >= FLASH_SEQ and not is_analysis() \
+        else _plain_attention
     out = grouped_attention(
         lambda qg, k, v, pos: fn(qg, k, v, pos, pos, window, scale, cap),
         q, k, v, tok_pos)
     if mode == "prefill":
-        t = cache["k"].shape[1]
-        for name, new in (("k", k), ("v", v)):
-            if t >= s:                                   # linear fill
-                cache[name][:, :s] = new
-            else:                # ring: keep tail; global pos p -> slot p % t
-                cache[name].copy_(torch.roll(new[:, -t:], s % t, dims=1))
+        ns = P(cs[0], None, cs[2], None)
+        local_blocks(partial(_prefill_block, t=cache["k"].shape[1],
+                             axes=entry_axes(cs[1])),
+                     (k, v, cache["k"], cache["v"]), (ns, ns, cs, cs), cs)
     out = shard(out, "batch", "seq", "heads")
     return dense(p["o"], out), cache
+
+
+# ---------------------------------------------------------------------------
+# The cache, block by block.  Each function below runs on plain tensors:
+# the whole cache, or on a mesh one rank's block of it, which holds slots
+# [off, off + block) of the ``t`` slots along "kv_seq".
+# ---------------------------------------------------------------------------
+
+
+def _prefill_block(kn, vn, kc, vc, *, t: int, axes):
+    """Fill the cache block from the new K/V (B, S, Hkv, Dh) of positions
+    0..S-1: a linear cache takes positions [off, off + block), a ring
+    (``t`` < S) keeps the last ``t`` with position p in slot p % t."""
+    tb = kc.shape[1]
+    off = block_start(axes, tb)
+    for c, new in ((kc, kn), (vc, vn)):
+        s = new.shape[1]
+        if t >= s:                                       # linear fill
+            n = max(0, min(tb, s - off))
+            c[:, :n] = new[:, off:off + n]
+        else:
+            c.copy_(torch.roll(new[:, -t:], s % t, dims=1)[:, off:off + tb])
+    return kc
+
+
+def _decode_block(qg, kn, vn, kc, vc, pos, *, t: int, axes, window, scale,
+                  cap):
+    """Write each row's new K/V (B, Hkv, Dh) into its ring slot pos mod t,
+    where this block holds it, then attend.  Over a whole cache (``axes``
+    of one rank) that is the attention kernel.  Over a block of a cache
+    split along "kv_seq", each rank forms its partial softmax (max,
+    normaliser, unnormalised output) with the plain version's
+    ``partials``, and the ranks merge them: an all-reduce max and two sums
+    over ``axes``, the all-reduces GSPMD places for the reference's decode
+    attention."""
+    ranks = current_ctx().axis_size(axes) if axes else 1
+    if ranks > 1 and qg.device.type == "cuda":
+        raise NotImplementedError(
+            f"decode over a kv_seq axis of {ranks} ranks needs the attention "
+            "kernel to return its log-sum-exp, which it does not yet")
+    tb = kc.shape[1]
+    off = block_start(axes, tb)
+    slot = torch.remainder(pos.long(), t) - off
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for c, new in ((kc, kn), (vc, vn)):
+        new = new.to(c.dtype)
+        if tb == t:
+            c[rows, slot] = new
+        else:                     # rows whose slot another rank holds
+            mine = ((slot >= 0) & (slot < tb))[:, None, None]
+            idx = slot.clamp(0, tb - 1)
+            c[rows, idx] = torch.where(mine, new, c[rows, idx])
+    if ranks == 1:
+        return ops.partition_attention(qg, kc, vc, pos.to(torch.int32),
+                                       window=window, logit_cap=cap,
+                                       scale=scale)
+    top, l, acc = ref.partition_attention(
+        qg, kc, vc, pos, window=window, logit_cap=cap, scale=scale, off=off,
+        t=t, partials=True)
+    ctx = current_ctx()
+    m = top.clone()
+    for a in axes:
+        if ctx.shape[a] > 1:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX,
+                            group=ctx.mesh.get_group(a))
+    e = torch.exp(top - m)
+    acc, l = acc * e[..., None], l * e
+    for a in axes:
+        acc, l = psum(acc, a), psum(l, a)
+    return (acc / l[..., None]).to(vc.dtype)
 
 
 def make_attn_cache_spec(cfg, batch: int, cache_len: int, window: int = 0):

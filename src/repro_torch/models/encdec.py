@@ -18,13 +18,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import (_scores, _split_heads, _weighted,
+from repro_torch.models.attention import (_scores, _weighted,
                                           make_attn_cache_spec)
 from repro_torch.models.layers import (apply_rope, bf16, dense, dense_spec,
                                        mlp, mlp_spec, norm_spec, rmsnorm,
                                        stack_specs)
 from repro_torch.models.transformer import _index, checkpointed, unstack
-from repro_torch.sharding import shard
+from repro_torch.sharding import shard, split_last
 
 
 def _cross_attn_spec(cfg):
@@ -81,11 +81,11 @@ def _unmasked(cfg, q, k, v):
 def _bidir_attention(cfg, p, x, positions):
     """Full bidirectional self-attention (encoder)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(_split_heads(dense(p["q"], x), hq, dh), positions,
+    q = apply_rope(split_last(dense(p["q"], x), hq, dh), positions,
                    cfg.rope_theta)
-    k = apply_rope(_split_heads(dense(p["k"], x), hkv, dh), positions,
+    k = apply_rope(split_last(dense(p["k"], x), hkv, dh), positions,
                    cfg.rope_theta)
-    v = _split_heads(dense(p["v"], x), hkv, dh)
+    v = split_last(dense(p["v"], x), hkv, dh)
     return dense(p["o"], _unmasked(cfg, q, k, v))
 
 
@@ -107,10 +107,10 @@ def _cross_attention(cfg, p, x, enc_out=None, cache=None):
     the cross K/V are computed from it (and written into ``cache`` in
     place when one is given); at decode the cache is read."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(dense(p["q"], x), hq, dh)
+    q = split_last(dense(p["q"], x), hq, dh)
     if enc_out is not None:
-        k = _split_heads(dense(p["k"], enc_out), hkv, dh)
-        v = _split_heads(dense(p["v"], enc_out), hkv, dh)
+        k = split_last(dense(p["k"], enc_out), hkv, dh)
+        v = split_last(dense(p["v"], enc_out), hkv, dh)
         if cache is not None:
             for name, new in (("k", k), ("v", v)):
                 if cache[name].shape != new.shape:

@@ -8,6 +8,8 @@ initialisation.  ``tree_flatten`` orders dict keys sorted, as
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Optional
@@ -17,9 +19,10 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.sharding import (P, current_ctx, distribute, entry_axes,
-                                  is_dtensor, local_blocks, named_sharding,
-                                  psum, shard, spec_for)
+from repro_torch.sharding import (P, block_start, current_ctx, distribute,
+                                  entry_axes, gather_weight, is_dtensor,
+                                  local_blocks, named_sharding, psum, shard,
+                                  spec_for)
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -185,15 +188,38 @@ def sharding_tree(specs, mesh, rules):
 # ---------------------------------------------------------------------------
 
 
+# int8 weight quantization for serving (a perf lever of the analysis
+# tools' hill-climb): projection weights are stored int8 with a
+# per-output-channel scale, which halves the HBM weight traffic.
+_QUANT = contextvars.ContextVar("weight_quant", default=False)
+
+
+@contextlib.contextmanager
+def weight_quant():
+    tok = _QUANT.set(True)
+    try:
+        yield
+    finally:
+        _QUANT.reset(tok)
+
+
 def dense_spec(d_in: int, d_out: int, axes, *, bias=False):
-    out = {"w": ParamSpec((d_in, d_out), bf16, axes)}
+    if _QUANT.get():
+        out = {"w": ParamSpec((d_in, d_out), torch.int8, axes, init="zeros"),
+               "qscale": ParamSpec((d_out,), f32, (axes[-1],),
+                                   init="ones")}
+    else:
+        out = {"w": ParamSpec((d_in, d_out), bf16, axes)}
     if bias:
         out["b"] = ParamSpec((d_out,), bf16, (axes[-1],), init="zeros")
     return out
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    w = gather_weight(p["w"], x)
+    if w.dtype == torch.int8:
+        w = w.to(x.dtype) * p["qscale"].to(x.dtype)
+    y = x @ w
     if "b" in p:
         y = y + p["b"]
     return y
@@ -293,20 +319,22 @@ def cross_entropy(cfg, logits: torch.Tensor,
                   labels: torch.Tensor) -> torch.Tensor:
     """Mean token NLL in f32; logits (B, S, Vp) possibly vocab-padded and
     softcapped (the cap is applied in the logits' dtype, then f32).  On a
-    mesh whose rules shard the vocab over one axis, each rank works on
-    its own block of the vocab (``_vocab_block_nll``), as GSPMD
-    partitions it: the logits are never gathered."""
+    mesh each rank works on its own rows and, where the rules shard the
+    vocab over an axis, its own block of the vocab (``_vocab_block_nll``),
+    as GSPMD partitions it: the logits are never gathered, and the
+    gradient of the gold logit is formed per rank, not as a replicated
+    zeros of the global logits' shape (DTensor's ``new_zeros``)."""
     ctx = current_ctx()
     if ctx is not None and is_dtensor(logits):
         ls = spec_for(("batch", "seq", "vocab"), tuple(logits.shape), ctx)
         axes = entry_axes(ls[2])
-        if axes:
-            # every rule table shards the vocab over one axis at most
-            assert len(axes) == 1, ls
-            rows = P(ls[0], ls[1])
-            return torch.mean(local_blocks(
-                lambda lg, lb: _vocab_block_nll(cfg, axes[0], lg, lb),
-                (logits, labels), (ls, rows), rows))
+        # every rule table shards the vocab over one axis at most
+        assert len(axes) <= 1, ls
+        rows = P(ls[0], ls[1])
+        return torch.mean(local_blocks(
+            lambda lg, lb: _vocab_block_nll(cfg, axes[0] if axes else None,
+                                            lg, lb),
+            (logits, labels), (ls, rows), rows))
     logits = softcap(logits, cfg.final_logit_softcap).to(f32)
     bias = vocab_logit_bias(cfg)
     if bias is not None:
@@ -316,14 +344,15 @@ def cross_entropy(cfg, logits: torch.Tensor,
     return torch.mean(logz - gold)
 
 
-def _vocab_block_nll(cfg, axis: str, logits: torch.Tensor,
+def _vocab_block_nll(cfg, axis: Optional[str], logits: torch.Tensor,
                      labels: torch.Tensor) -> torch.Tensor:
     """Per-token NLL from this rank's block of the vocab (plain tensors,
-    the vocab split over mesh ``axis``): the max and the sum of the
-    log-sum-exp and the gold logit each combined over ``axis``."""
+    the vocab split over mesh ``axis``, or whole when ``axis`` is None):
+    the max and the sum of the log-sum-exp and the gold logit each
+    combined over ``axis``."""
     ctx = current_ctx()
     vb = logits.shape[-1]
-    v0 = ctx.mesh.get_local_rank(axis) * vb
+    v0 = block_start((axis,) if axis else (), vb)
     logits = softcap(logits, cfg.final_logit_softcap).to(f32)
     bias = vocab_logit_bias(cfg)
     if bias is not None:
@@ -332,12 +361,14 @@ def _vocab_block_nll(cfg, axis: str, logits: torch.Tensor,
     # the max only keeps exp() in range; its gradient cancels, so it is
     # taken without one
     top = logits.detach().amax(-1)
-    if ctx.shape[axis] > 1:
+    if axis and ctx.shape[axis] > 1:
         dist.all_reduce(top, op=dist.ReduceOp.MAX,
                         group=ctx.mesh.get_group(axis))
-    total = psum(torch.exp(logits - top[..., None]).sum(-1), axis)
+    total = torch.exp(logits - top[..., None]).sum(-1)
     idx = labels.long() - v0
     mine = (idx >= 0) & (idx < vb)
     gold = torch.gather(logits, -1, idx.clamp(0, vb - 1)[..., None])[..., 0]
-    gold = psum(torch.where(mine, gold, 0.0), axis)
+    gold = torch.where(mine, gold, 0.0)
+    if axis:
+        total, gold = psum(total, axis), psum(gold, axis)
     return top + torch.log(total) - gold

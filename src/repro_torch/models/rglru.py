@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (ParamSpec, act_fn, bf16, dense,
                                        dense_spec, f32)
 from repro_torch.models.ssm import causal_conv
-from repro_torch.sharding import shard
+from repro_torch.sharding import is_dtensor, shard, split_last
 
 LRU_C = 8.0
 
@@ -53,7 +53,7 @@ def _gates(p, x, nb):
     """Block-diagonal sigmoid gates; x (..., W) -> (r, i) each (..., W)
     in f32 (the bf16 weights are cast up, as JAX promotes them)."""
     bs = x.shape[-1] // nb
-    xb = x.reshape(x.shape[:-1] + (nb, bs)).to(f32)
+    xb = split_last(x, nb, bs).to(f32)
     r = torch.sigmoid(torch.einsum("...hi,hio->...ho", xb,
                                    p["gate_r"]["w"].to(f32))
                       + p["gate_r"]["b"])
@@ -61,7 +61,16 @@ def _gates(p, x, nb):
                                    p["gate_i"]["w"].to(f32))
                       + p["gate_i"]["b"])
     flat = x.shape[:-1] + (nb * bs,)
-    return r.reshape(flat), i.reshape(flat)
+    r, i = r.reshape(flat), i.reshape(flat)
+    if is_dtensor(x):
+        # back onto x's split, so that the backward gathers the incoming
+        # gradient before it unflattens it (see ``split_last``)
+        from torch.distributed.tensor import Replicate
+        to = [pl if pl.is_shard() else Replicate() for pl in x.placements]
+        if list(r.placements) != to:
+            r = r.redistribute(x.device_mesh, to)
+            i = i.redistribute(x.device_mesh, to)
+    return r, i
 
 
 def _lru_coeffs(p, x, nb):

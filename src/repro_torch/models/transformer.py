@@ -16,6 +16,7 @@ sandwich norms (``pn1``/``pn2``) follow the attention and the FFN when
 from __future__ import annotations
 
 import contextlib
+from functools import partial
 
 import torch
 import torch.utils.checkpoint
@@ -28,7 +29,8 @@ from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
                                        mlp_spec, norm_spec, padded_vocab,
                                        rmsnorm, softcap, stack_specs,
                                        tree_flatten, tree_unflatten)
-from repro_torch.sharding import (P, current_ctx, local_blocks, shard,
+from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
+                                  gather_weight, local_blocks, psum, shard,
                                   spec_for, use_ctx)
 
 ATTN_KINDS = ("attn", "local", "global")
@@ -189,8 +191,16 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
 
 
 def embed_tokens(cfg, embed_params, tokens, vision_embeds=None):
-    def lookup(table, ids, *vision):
-        x = table[ids]
+    def lookup(table, ids, *vision, axes=()):
+        if axes:                       # this rank's block of the vocab
+            vb = table.shape[0]
+            idx = ids.long() - block_start(axes, vb)
+            mine = (idx >= 0) & (idx < vb)
+            x = torch.where(mine[..., None], table[idx.clamp(0, vb - 1)], 0)
+            for a in axes:
+                x = psum(x, a)
+        else:
+            x = table[ids]
         if cfg.scale_embeddings:
             # the scale is rounded to the activation dtype first, as the
             # JAX package computes it (sqrt(2560) is 50.5 in bf16)
@@ -204,22 +214,26 @@ def embed_tokens(cfg, embed_params, tokens, vision_embeds=None):
     ctx = current_ctx()
     if ctx is None:
         return lookup(embed_params["tok"], tokens, *vision)
-    # on a mesh each rank looks up its own rows of ids in the gathered
-    # table (the gather is FSDP's; DTensor's index strategy rejects ids
-    # sharded over two mesh dims)
+    # on a mesh each rank looks up its own rows of ids in its block of the
+    # vocab, and the rows are summed over the vocab's mesh axes, as GSPMD
+    # partitions the gather (the table's d_model dim is gathered: FSDP's
+    # gather; DTensor's index strategy rejects ids sharded over two mesh
+    # dims)
     rows = spec_for(("batch", "seq"), tuple(tokens.shape), ctx)
     out = spec_for(("batch", "seq", "embed"),
                    tuple(tokens.shape) + (cfg.d_model,), ctx)
-    table = shard(embed_params["tok"], None, None)
-    return local_blocks(lookup, (table, tokens, *vision),
-                        (P(None, None), rows)
+    table = shard(embed_params["tok"], "vocab", None)
+    ts = spec_for(("vocab", None), tuple(table.shape), ctx)
+    return local_blocks(partial(lookup, axes=entry_axes(ts[0])),
+                        (table, tokens, *vision),
+                        (ts, rows)
                         + tuple(P(rows[0], None, out[2]) for _ in vision),
                         out)
 
 
 def lm_logits(cfg, embed_params, x):
     if cfg.tie_embeddings:
-        logits = x @ embed_params["tok"].T
+        logits = x @ gather_weight(embed_params["tok"], x).T
     else:
         logits = dense(embed_params["lm_head"], x)
     logits = softcap(logits, cfg.final_logit_softcap)

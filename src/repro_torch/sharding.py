@@ -310,6 +310,52 @@ def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
 
 
+def split_last(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(..., n*d) -> (..., n, d).  A DTensor whose last dim is split over
+    more ranks than divide ``n`` is gathered on that dim first: DTensor
+    cannot unflatten it (GSPMD reshards it the same way)."""
+    if is_dtensor(x):
+        last = x.ndim - 1
+        ranks = math.prod(x.device_mesh.size(i)
+                          for i, pl in enumerate(x.placements)
+                          if pl.is_shard(last))
+        if n % ranks:
+            from torch.distributed.tensor import Replicate
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if pl.is_shard(last) else pl
+                for pl in x.placements])
+    return x.reshape(x.shape[:-1] + (n, d))
+
+
+def block_start(axes: tuple[str, ...], block: int) -> int:
+    """The first index of this rank's block of a dim split over the active
+    context's mesh ``axes`` (major to minor, as ``placements`` splits
+    it), ``block`` indices a block; 0 over no axes."""
+    ctx, idx = current_ctx(), 0
+    for a in axes:
+        idx = idx * ctx.shape[a] + ctx.mesh.get_local_rank(a)
+    return idx * block
+
+
+def gather_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w`` gathered on each mesh dim that splits the rows of ``x`` (its
+    dims but the last): FSDP's weight gather, which GSPMD places for the
+    reference.  Left to itself, DTensor contracts over a weight dim that
+    such a mesh dim splits and reduce-scatters the product: activation-
+    sized collectives where the weight's are enough."""
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return w
+    rows = {i for i, pl in enumerate(x.placements)
+            if pl.is_shard() and pl.dim < x.ndim - 1}
+    if not any(pl.is_shard() for i, pl in enumerate(w.placements)
+               if i in rows):
+        return w
+    from torch.distributed.tensor import Replicate
+    return w.redistribute(w.device_mesh, [
+        Replicate() if i in rows and pl.is_shard() else pl
+        for i, pl in enumerate(w.placements)])
+
+
 def local_blocks(fn, args, in_specs, out_specs):
     """``fn(*args)`` run by every rank on its own blocks: the twin of
     ``shard_map`` for code that needs no communication under these specs

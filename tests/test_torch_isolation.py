@@ -30,7 +30,8 @@ VERBATIM = ["configs/base.py"] + [
     "serving/tracegen.py", "training/data.py",
     "cluster/topology.py", "cluster/ledger.py", "cluster/snapshots.py",
     "cluster/host.py", "cluster/router.py", "cluster/fleet.py",
-    "cluster/sim.py", "cluster/scenarios.py", "cluster/__init__.py"]
+    "cluster/sim.py", "cluster/scenarios.py", "cluster/__init__.py",
+    "tracemode.py"]
 
 
 def _forbidden(name: str) -> bool:

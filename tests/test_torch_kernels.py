@@ -85,6 +85,30 @@ def test_partition_attention_softcap_vs_jax(dtype, cap):
                                    logit_cap=cap), want, tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (24, 0.0), (0, 30.0)])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_partition_attention_partials_merge_to_jax(dtype, window, cap,
+                                                   blocks):
+    """The ring split into ``blocks`` blocks of slots (a cache split on
+    "kv_seq"): each block's partials, merged as a mesh merges them, give
+    the JAX package's attention over the whole ring."""
+    q, k, v, pos, tol = _attn_inputs((4, 64, 2, 3, 32), dtype,
+                                     blocks + window)
+    want = jref.partition_attention(q[0] * 4, k[0], v[0], pos[0],
+                                    window=window, logit_cap=cap)
+    tb = 64 // blocks
+    parts = [ref.partition_attention(
+        q[1] * 4, k[1][:, i * tb:(i + 1) * tb], v[1][:, i * tb:(i + 1) * tb],
+        pos[1], window=window, logit_cap=cap, off=i * tb, t=64,
+        partials=True) for i in range(blocks)]
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    e = [torch.exp(p[0] - m) for p in parts]
+    acc = sum(p[2] * w[..., None] for p, w in zip(parts, e))
+    l = sum(p[1] * w for p, w in zip(parts, e))
+    _close((acc / l[..., None]).to(v[1].dtype), want, tol)
+
+
 def test_partition_attention_plain_vs_pallas_interpret():
     q, k, v, pos, tol = _attn_inputs((4, 64, 2, 3, 32), "f32", 3)
     want = pallas_partition_attention(q[0], k[0], v[0], pos[0], window=24,

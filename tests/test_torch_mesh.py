@@ -299,6 +299,8 @@ def _embed_cases(mesh) -> dict:
         with sharding_ctx(mesh, rules):
             with CommDebugMode() as gather:
                 S.shard(tab, None, None)
+            with CommDebugMode() as fsdp:
+                S.shard(tab, "vocab", None)
             with CommDebugMode() as comm:
                 x = embed_tokens(cfg, {"tok": tab}, ids)
         want = named_sharding(("batch", "seq", "embed"),
@@ -307,6 +309,7 @@ def _embed_cases(mesh) -> dict:
                      "shard_shape": want.shard_shape(tuple(x.shape)),
                      "placements_ok": x.placements == want.placements,
                      "gather_comms": _comm_counts(gather),
+                     "fsdp_comms": _comm_counts(fsdp),
                      "comms": _comm_counts(comm)}
     return out
 
@@ -846,7 +849,9 @@ def test_embedding_looks_up_each_ranks_rows(kind, port_train):
     """Each rank embeds only its own block of the batch: the rows equal
     the unsharded lookup, the result is laid out on ("batch", "seq",
     "embed"), and the lookup communicates no more than the table's
-    gather (the ids are not gathered)."""
+    gather: the ids are not gathered, nor is a vocab split over "model"
+    (the TP rules'), whose rows are summed over "model" instead, one
+    all-reduce; only the FSDP'd d_model dim is gathered."""
     from repro_torch.models.transformer import embed_tokens
     r = port_train["embed"][kind]
     cfg = reduced(get_config("tinyllama-1.1b"))
@@ -856,7 +861,15 @@ def test_embedding_looks_up_each_ranks_rows(kind, port_train):
     assert torch.equal(r["x"], want)
     assert r["placements_ok"] and r["local"] == r["shard_shape"]
     assert r["local"][0] < BATCH
-    assert r["comms"] == r["gather_comms"], (r["comms"], r["gather_comms"])
+    summed = sum(v for k, v in r["comms"].items() if "allreduce_" in k)
+    rest = {k: v for k, v in r["comms"].items() if "allreduce_" not in k}
+    assert rest == r["fsdp_comms"], (r["comms"], r["fsdp_comms"])
+    assert summed == (1 if kind == "tp" else 0), r["comms"]
+    if kind == "dp":               # no vocab split: the whole table gather
+        assert r["fsdp_comms"] == r["gather_comms"]
+    else:
+        assert sum(r["fsdp_comms"].values()) \
+            < sum(r["gather_comms"].values()), r
 
 
 def test_restore_without_placements_stays_plain(tmp_path):
