@@ -3,14 +3,20 @@
 NVIDIA card: builds the hand-written kernels, holds each against its plain
 PyTorch version at the shapes of the main path, drives the layout-contrast
 entry point (``launch/kernel_demo.py::layout_contrast``) at full width,
-then drives the hotmem ``ServeEngine`` on full-width qwen2-7b (random
-weights from a seed) through cold start, warm start, snapshot capture,
+decodes over a cache split along "kv_seq" (the attention kernel on blocks
+of the ring returning its softmax partials, merged as ranks merge them,
+then full-width qwen2-7b on a world of two gloo ranks on this card, held
+to the unsharded run), then drives the hotmem ``ServeEngine`` on
+full-width qwen2-7b (random weights from a seed) through cold start,
+warm start, snapshot capture,
 restore, the paged copy-on-write remap, plug and unplug, and the vanilla
 paged ``ServeEngine`` through the same bursty trace and a scripted unplug
 that must migrate blocks, then two full-width replicas on one host budget
 through the cluster layer (``launch/cluster_demo.py``): a scripted steal
 per mode, the demo's two-replica trace under the sync and the async
-broker, and two hosts whose late tail restores remotely; then the other
+broker, and two hosts whose late tail restores remotely; then the
+paper's end-to-end scenario (``launch/serve_elastic.py``: hotmem, vanilla
+and static on one bursty trace) at full width; then the other
 decoder families one after the other, each freed before the next:
 full-width mamba2-780m, recurrentgemma-2b, gemma2-9b and mixtral-8x7b (16
 of its 32 layers: the whole model does not fit the card) through the
@@ -61,7 +67,7 @@ import sys
 import tempfile
 import time
 from collections import deque
-from functools import partial
+from functools import lru_cache, partial
 from pathlib import Path
 
 import numpy as np
@@ -81,7 +87,8 @@ from repro_torch.configs.base import (ShapeCell, get_config,  # noqa: E402
 from repro_torch.core.arena import ArenaSpec  # noqa: E402
 from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
-from repro_torch.kernels.partition_attention import splits_for  # noqa: E402
+from repro_torch.kernels.partition_attention import (  # noqa: E402
+    block_runs, splits_for)
 from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
                                              demo_requests, host_budget,
                                              load_model, summarize)
@@ -89,6 +96,7 @@ from repro_torch.launch.kernel_demo import (layout_contrast,  # noqa: E402
                                             scatter_to_pool)
 from repro_torch.launch import distributed, dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.serve_elastic import serve_elastic  # noqa: E402
 from repro_torch.launch.specs import (batch_specs,  # noqa: E402
                                       train_state_specs)
 from repro_torch.launch.train import (batch_to_mesh, make_batch,  # noqa: E402
@@ -97,6 +105,7 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.attention import merge_partials  # noqa: E402
 from repro_torch.models.layers import (materialize,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.sharding import (DP_ONLY_TRAIN_RULES,  # noqa: E402
@@ -228,6 +237,43 @@ def _sdpa_call(q, k, v, pos, scale: float, window: int = 0):
     vs = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
     return lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale)
+
+
+@lru_cache(maxsize=None)
+def _flex(cap: float):
+    """``flex_attention`` compiled once, with a tanh logit cap of ``cap``
+    as its ``score_mod``."""
+    from torch.nn.attention.flex_attention import flex_attention
+
+    def capped(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+    fn = torch.compile(flex_attention)
+    return partial(fn, score_mod=capped)
+
+
+def _flex_call(q, k, v, pos, scale: float, window: int, cap: float):
+    """One compiled ``flex_attention`` call computing the ring attention of
+    q (P, Hkv, G, Dh) on k/v (P, T, Hkv, Dh) under a tanh logit cap: the
+    cap as its ``score_mod``, the ring and window validity as its block
+    mask (built here, and compiled by the first call, outside any timing),
+    the GQA as ``enable_gqa``."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    p, hkv, g, dh = q.shape
+    t = k.shape[1]
+    at = pos.long()
+
+    def valid(b, h, q_idx, kv_idx):
+        gidx = at[b] - (at[b] - kv_idx) % t
+        ok = gidx >= 0
+        if window:
+            ok = ok & (gidx > at[b] - window)
+        return ok
+    mask = create_block_mask(valid, p, None, 1, t, device=DEV)
+    qs = q.reshape(p, hkv * g, 1, dh)
+    ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+    fn = _flex(cap)
+    return lambda: fn(qs, ks, vs, block_mask=mask, scale=scale,
+                      enable_gqa=True)
 
 
 def phase_attention(cfg, gen) -> dict:
@@ -378,8 +424,9 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
     a window of 512, then each window of the model's blocks over the ring
     and below T, each against the plain version; the engine's call (the
     first block's window, positions below T) timed against its byte bound
-    and one SDPA call, and the other windows' calls timed in
-    ``more_shapes``."""
+    and one PyTorch call (SDPA, or under a logit cap a compiled
+    ``flex_attention`` with the cap as its ``score_mod``), and the other
+    windows' calls timed in ``more_shapes``."""
     p, hkv, dh = N_PARTITIONS, cfg.num_kv_heads, cfg.head_dim
     windows = _attention_windows(cfg)
     t = PARTITION_TOKENS
@@ -415,15 +462,21 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
     timed = []
     for window in windows:
         kw = {"window": window, **model}
-        # SDPA has no logit cap: under a cap no single PyTorch call computes
-        # the function (library_ms null), and SDPA's time on the same
-        # inputs without the cap is kept beside it for scale
+        # SDPA has no logit cap: under a cap the yardstick is flex_attention
+        # (below), and SDPA's time on the same inputs without the cap is
+        # kept beside it for scale
         sdpa = _sdpa_call(q, k, v, lo, scale, window)
         _, sdpa_err = allclose(
             sdpa().reshape(p, hkv, g, dh),
             ref.partition_attention(q, k, v, lo, window=window, scale=scale),
             TOL_BF16)
         sdpa_ms = median_ms(sdpa)
+        flex = flex_err = None
+        if cap:
+            flex = _flex_call(q, k, v, lo, scale, window, cap)
+            _, flex_err = allclose(
+                flex().reshape(p, hkv, g, dh),
+                ref.partition_attention(q, k, v, lo, **kw), TOL_BF16)
         valid = _valid_slots(lo, t, window)
         nbytes = 2 * valid * hkv * dh * item + 2 * q.numel() * item + 4 * p
         flops = 4.0 * valid * hkv * g * dh
@@ -436,7 +489,10 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
             "plain_ms": median_ms(partial(ref.partition_attention, q, k, v,
                                           lo, **kw)),
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": None if cap else sdpa_ms,
+            "library_ms": median_ms(flex) if cap else sdpa_ms,
+            "library": "flex_attention (compiled, tanh score_mod)" if cap
+            else "scaled_dot_product_attention",
+            "library_max_abs_err": flex_err if cap else sdpa_err,
             "sdpa_without_cap_ms": sdpa_ms})
     main = timed[0]
     row = {"name": f"partition_attention@{tag}", "route": "cuda",
@@ -451,7 +507,8 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
           "logit_cap": cap, "scale": scale, "splits": splits_for(q, t),
           "errors": errs, "tight_limits": limits,
           **{k: main[k] for k in ("window", "valid_slots", "bytes", "flops",
-                                  "sdpa_max_abs_err", "sdpa_without_cap_ms")},
+                                  "sdpa_max_abs_err", "sdpa_without_cap_ms",
+                                  "library", "library_max_abs_err")},
           "more_shapes": timed[1:], **row})
     return row
 
@@ -2692,6 +2749,394 @@ def phase_train_reference(arch: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Decode over a "kv_seq"-split cache: the attention kernel on blocks of the
+# ring with its softmax partials, a world of two ranks on this card, and
+# the paper's end-to-end scenario through launch/serve_elastic.py
+# ---------------------------------------------------------------------------
+
+KV_SEQ_BLOCKS = (2, 4)
+# (config, windows): gemma2's window (4096) spans the 2048-slot ring, so its
+# windowed case takes 512, as phase_attention_at's ring_window_512
+KV_SEQ_CASES = (("qwen2-7b", (0,)), ("gemma2-9b", (0, 512)))
+# a prompt past the first rank's block of the 2048-slot cache, so that both
+# ranks hold valid slots (a 512-token prompt leaves the second block empty
+# and weighs it 0 in the merge, which would hide a fault in it)
+KV_SEQ_ROWS, KV_SEQ_PROMPT, KV_SEQ_STEPS = 2, 1536, 8
+KV_SEQ_WORLD = 2
+KV_SEQ_TIMEOUT_S = 300
+
+
+def _kv_seq_positions(t: int) -> torch.Tensor:
+    """pos < 0 (every slot masked); inside the first quarter only; the
+    last slot of the first half and the first of the second; the ring's
+    last slot; wrapped once and far past t; one more inside."""
+    return torch.tensor([-1, 100, t // 2 - 1, t // 2, t - 1, t + 700,
+                         10 * t + 123, 3 * t // 4 + 5], dtype=torch.int32,
+                        device=DEV)
+
+
+def _stack_merge(parts):
+    """``merge_partials`` over the blocks' partials stacked on dim 0: the
+    max and the sums of ``_decode_block``'s all-reduces as reductions."""
+    top, lsum, acc = (torch.stack(z) for z in zip(*parts))
+    return merge_partials(top, lsum, acc, lambda x: x.amax(0, keepdim=True),
+                          lambda x: x.sum(0))
+
+
+def _block_slots(pos, t: int, window: int, off: int, tb: int) -> list[int]:
+    """Valid slots of each row in the block (``block_runs``, the kernel's
+    runs), the whole block for pos < 0."""
+    return [sum(b - a for a, b in block_runs(int(p), t, window, off, tb))
+            for p in pos.tolist()]
+
+
+def _efficient_call(q, k, v, pos, scale: float, t: int, off: int,
+                    window: int):
+    """One PyTorch call that returns a block's output and log-sum-exp:
+    ``_scaled_dot_product_efficient_attention`` with ``compute_log_sumexp``
+    on the unrolled GQA, the block's valid slots as an additive bias (built
+    here, outside any timing)."""
+    p, hkv, g, dh = q.shape
+    tb = k.shape[1]
+    slots = off + torch.arange(tb, device=DEV)[None, :]
+    at = pos.long()[:, None]
+    gidx = at - torch.remainder(at - slots, t)
+    valid = gidx >= 0
+    if window:
+        valid &= gidx > at - window
+    bias = torch.zeros((p, hkv * g, 1, tb), dtype=q.dtype, device=DEV)
+    bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    qs = q.reshape(p, hkv * g, 1, dh)
+    ks = k.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    vs = v.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).contiguous()
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qs, ks, vs, bias, True, scale=scale)[:2]
+
+
+def phase_kv_seq_decode(gen) -> dict:
+    """``partition_attention`` on blocks of a ring with ``partials``, at
+    full-width qwen2-7b (P 8, t 2048, Hkv 4, G 7, Dh 128) and gemma2-9b
+    (Hkv 8, G 2, Dh 256, cap 50, scale 1/16; windows 0 and 512) shapes in
+    bf16: the ring cut into 2 and into 4 blocks, each block's partials
+    held to the plain version's where the block holds a valid slot for
+    the row (max NEG_INF where it holds none), and the blocks merged by
+    ``_decode_block``'s merge (``merge_partials``) held to the one-block
+    kernel and to the plain version.  The rows include pos < 0, a position
+    inside one block only and rings wrapped past t.  Then the time of one
+    block's call (the first of two, qwen2-7b, the engine's positions below
+    t) against its bound (the bytes of the block's valid slots), the plain
+    version and one PyTorch call that returns the output and the
+    log-sum-exp.  Its ``launches`` come from the world run
+    (``phase_kv_seq_world``), the main path over a split cache."""
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    t, p = PARTITION_TOKENS, N_PARTITIONS
+    bf16 = torch.bfloat16
+    errs, limits = {}, {}
+    for arch, windows in KV_SEQ_CASES:
+        cfg = get_config(arch)
+        hkv, dh = cfg.num_kv_heads, cfg.head_dim
+        g = cfg.num_heads // hkv
+        model = {"logit_cap": cfg.attn_logit_softcap,
+                 "scale": cfg.query_scale or dh ** -0.5}
+        q = randn((p, hkv, g, dh), bf16, gen)
+        k = randn((p, t, hkv, dh), bf16, gen)
+        v = randn((p, t, hkv, dh), bf16, gen)
+        pos = _kv_seq_positions(t)
+        for window in windows:
+            kw = {"window": window, **model}
+            whole = ops.partition_attention(q, k, v, pos, **kw)
+            want = ref.partition_attention(q, k, v, pos, **kw)
+            for nb in KV_SEQ_BLOCKS:
+                tb, parts = t // nb, []
+                for off in range(0, t, tb):
+                    kb = k[:, off:off + tb].contiguous()
+                    vb = v[:, off:off + tb].contiguous()
+                    got = ops.partition_attention(q, kb, vb, pos, off=off,
+                                                  t=t, partials=True, **kw)
+                    wp = ref.partition_attention(q, kb, vb, pos, off=off,
+                                                 t=t, partials=True, **kw)
+                    parts.append(got)
+                    has = torch.tensor(
+                        [n > 0 for n in _block_slots(pos, t, window, off,
+                                                     tb)], device=DEV)
+                    tag = f"{arch}/w{window}/{nb}_blocks/off{off}"
+                    check(bool((got[0][~has] == ref.NEG_INF).all()),
+                          f"{tag}: a block with no valid slot reports a max "
+                          f"other than NEG_INF")
+                    for name, a, b in zip(("top", "l", "acc"), got, wp):
+                        ok, err = allclose(a[has], b[has], TOL_BF16)
+                        check(ok, f"{tag}: partials {name} vs plain: {err}")
+                        errs[f"{tag}/{name}"] = err
+                    ok, err, limit = attention_close(
+                        (got[2] / got[1][..., None])[has],
+                        (wp[2] / wp[1][..., None])[has])
+                    check(ok, f"{tag}: block output vs plain: {err} > "
+                              f"{limit}")
+                merged = _stack_merge(parts).to(bf16)
+                for name, other in (("one_block_kernel", whole),
+                                    ("plain", want)):
+                    ok, err, limit = attention_close(merged, other)
+                    tag = f"{arch}/w{window}/{nb}_blocks_merged_vs_{name}"
+                    check(ok, f"{tag}: {err} within {TOL_BF16} and {limit}")
+                    errs[tag], limits[tag] = err, limit
+    phase_launches = ops.LAUNCHES["partition_attention"]
+
+    # one block's call at the engine's shapes and positions, timed
+    cfg = get_config(ARCH)
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    q = randn((p, hkv, g, dh), bf16, gen)
+    tb = t // KV_SEQ_BLOCKS[0]
+    kb = randn((p, tb, hkv, dh), bf16, gen)
+    vb = randn((p, tb, hkv, dh), bf16, gen)
+    lo = torch.randint(0, t, (p,), generator=gen, device=DEV,
+                       dtype=torch.int32)
+    kw = {"off": 0, "t": t, "partials": True}
+    kernel = partial(ops.partition_attention, q, kb, vb, lo, **kw)
+    plain = partial(ref.partition_attention, q, kb, vb, lo, **kw)
+    library = _efficient_call(q, kb, vb, lo, dh ** -0.5, t, 0, 0)
+    top, lsum, acc = plain()
+    out, lse = library()
+    _, lib_err = allclose(out.reshape(p, hkv, g, dh),
+                          acc / lsum[..., None], TOL_BF16)
+    _, lse_err = allclose(lse[:, :, 0].reshape(p, hkv, g),
+                          top + torch.log(lsum),
+                          TOL_BF16)
+    valid = sum(_block_slots(lo, t, 0, 0, tb))
+    item = q.element_size()
+    nbytes = 2 * valid * hkv * dh * item + q.numel() * item + 4 * p \
+        + 4 * (2 * p * hkv * g + acc.numel())
+    flops = 4.0 * valid * hkv * g * dh
+    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+    row = {"name": "partition_attention@kv_seq_partials", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
+           "replaces": "src/repro/kernels/partition_attention.py:70",
+           "path": "kv_seq", "max_abs_err": max(errs.values()),
+           "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": median_ms(library)}
+    emit({"phase": "kv_seq_decode", "cases": [list(c) for c in
+                                             KV_SEQ_CASES],
+          "blocks": list(KV_SEQ_BLOCKS), "positions":
+          _kv_seq_positions(t).tolist(), "errors": errs,
+          "tight_limits": limits, "comparison_launches": phase_launches,
+          "timed": {"shape": [p, tb, hkv, g, dh], "ring": t,
+                    "valid_slots": valid, "bytes": nbytes, "flops": flops,
+                    "library": "_scaled_dot_product_efficient_attention",
+                    "library_max_abs_err": lib_err,
+                    "library_lse_max_abs_err": lse_err},
+          "seconds": time.perf_counter() - t0, **row})
+    return row
+
+
+_KV_SEQ_WORLD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+port, out, device = sys.argv[3], sys.argv[4], "cuda"
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        world_size=world, rank=rank)
+print("group up", flush=True)
+from repro_torch import sharding as S
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import model as M
+from repro_torch.models.layers import (tree_flatten, tree_leaves,
+                                       tree_unflatten)
+rows, prompt, steps, t = (int(x) for x in sys.argv[5:9])
+cfg = get_config(sys.argv[9])
+ops.load()
+print("kernels loaded", flush=True)
+toks = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, size=(rows, prompt + steps)).astype(np.int32))
+
+
+def run(params, caches, place):
+    logits = []
+    with torch.no_grad():
+        lg, caches = M.prefill(cfg, params, {"tokens": place(
+            toks[:, :prompt].to(device), ("batch", "seq"))}, caches)
+        logits.append(lg)
+        for i in range(steps):
+            pos = torch.full((rows,), prompt + i, dtype=torch.int32,
+                             device=device)
+            lg, caches = M.decode_step(
+                cfg, params, place(toks[:, prompt + i:prompt + i + 1].to(
+                    device), ("batch", None)), place(pos, ("batch",)),
+                caches)
+            logits.append(lg)
+    logits = torch.stack([x.full_tensor() if S.is_dtensor(x) else x
+                          for x in logits]).float()
+    torch.cuda.synchronize()
+    return logits, caches
+
+
+res = {"rank": rank}
+if rank == 0:
+    params = M.init_params(cfg, 0, device=device)
+    t0 = time.perf_counter()
+    plain, _ = run(params, M.init_caches(cfg, rows, t, device=device),
+                   lambda x, axes: x)
+    res["plain_seconds"] = time.perf_counter() - t0
+    del params
+    print("unsharded run done", flush=True)
+mesh = make_host_mesh(device)
+# the serving rules' cache split, the weights whole on each rank
+rules = dict(S.serve_rules_for(cfg, "decode_32k"), heads=None, mlp=None,
+             vocab=None)
+params = M.init_params(cfg, 0, device=device, mesh=mesh, rules=rules)
+csh = M.cache_shardings(cfg, rows, t, mesh, rules)
+caches = M.init_caches(cfg, rows, t, device=device)
+flat = tree_leaves(caches)
+leaves = [S.distribute(x, sh) for x, sh in zip(flat, tree_leaves(csh))]
+caches = tree_unflatten(tree_flatten(caches)[1], leaves)
+del flat
+torch.cuda.empty_cache()
+print("placed on the mesh", flush=True)
+
+
+def place(x, axes):
+    return S.distribute(x, S.named_sharding(axes, tuple(x.shape), mesh,
+                                            rules))
+
+
+ops.reset_launches()
+t0 = time.perf_counter()
+with S.sharding_ctx(mesh, rules):
+    logits, caches = run(params, caches, place)
+res["mesh_seconds"] = time.perf_counter() - t0
+res["launches"] = dict(ops.LAUNCHES)
+res["kv_split"] = [tuple(sh.spec) for sh in tree_leaves(csh)]
+res["shards_ok"] = all(
+    S.is_dtensor(x) and x.placements == sh.placements
+    and tuple(x.to_local().shape) == sh.shard_shape(tuple(x.shape))
+    for x, sh in zip(tree_leaves(caches), tree_leaves(csh), strict=True))
+if rank == 0:
+    res["finite"] = bool(torch.isfinite(logits).all())
+    res["max_abs_err"] = float((logits - plain).abs().max())
+    res["max_abs_logit"] = float(plain.abs().max())
+    res["shape"] = list(logits.shape)
+with open(out, "w") as f:
+    json.dump(res, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def run_kv_seq_world() -> list[dict]:
+    """``_KV_SEQ_WORLD`` in ``KV_SEQ_WORLD`` processes on one gloo group
+    (on the card: both on cuda:0; NCCL refuses two ranks on one device,
+    gloo all-reduces CUDA tensors through the host): a (1, 2) host mesh,
+    ``serve_rules_for(cfg, "decode_32k")``'s cache split, so "kv_seq"
+    spans the ranks, with the weights whole on each rank (their tensor-
+    parallel split needs DTensor's functional all-gather, which dies of a
+    segmentation fault under gloo on CUDA tensors with torch 2.11; the CPU
+    tests hold that split to JAX); rank 0 also runs the same steps
+    unsharded.  Returns each rank's record; every process is killed at
+    the timeout or a failure."""
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="kv_seq_world")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", "-c", _KV_SEQ_WORLD, str(r),
+         str(KV_SEQ_WORLD), str(port), f"{tmp}/rank{r}.json",
+         str(KV_SEQ_ROWS), str(KV_SEQ_PROMPT), str(KV_SEQ_STEPS),
+         str(PARTITION_TOKENS), ARCH], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(KV_SEQ_WORLD)]
+    try:
+        outs = [p.communicate(timeout=KV_SEQ_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    bad = [(r, p.returncode, o[-4000:]) for r, (p, o) in
+           enumerate(zip(procs, outs)) if p.returncode != 0]
+    check(not bad, f"kv_seq world failed (rank, exit code, output): {bad}")
+    return [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+            for r in range(KV_SEQ_WORLD)]
+
+
+def phase_kv_seq_world(row: dict) -> dict:
+    """Full-width qwen2-7b decoding over a "kv_seq" axis of two ranks on
+    this card (``run_kv_seq_world``): 2 rows, a 2048-slot cache, a
+    1536-token prefill and 8 decode steps; the logits within 2e-2 of the
+    largest of the unsharded run's, every cache leaf its shard, and the
+    partials kernel launched on both ranks (one launch a layer a step),
+    which is ``row``'s launch count."""
+    t0 = time.perf_counter()
+    recs = run_kv_seq_world()
+    cfg = get_config(ARCH)
+    launches = [r["launches"]["partition_attention"] for r in recs]
+    want = _attention_layers(cfg) * KV_SEQ_STEPS
+    r0 = recs[0]
+    checks = {"finite": r0["finite"],
+              "logits_within_2e-2": r0["max_abs_err"]
+              <= 2e-2 * r0["max_abs_logit"],
+              "kv_seq_split_over_model": any(
+                  len(s) >= 3 and s[-3] == "model" for s in r0["kv_split"]),
+              "shards_ok": all(r["shards_ok"] for r in recs),
+              "partials_on_every_rank": launches == [want] * KV_SEQ_WORLD}
+    row["launches"] = sum(launches)
+    out = {"config": cfg.name, "world": KV_SEQ_WORLD, "backend": "gloo",
+           "rows": KV_SEQ_ROWS, "cache": PARTITION_TOKENS,
+           "prompt": KV_SEQ_PROMPT, "steps": KV_SEQ_STEPS,
+           "max_abs_err": r0["max_abs_err"],
+           "max_abs_logit": r0["max_abs_logit"],
+           "launches_per_rank": launches, "expected_per_rank": want,
+           "rank_seconds": {k: r0[k] for k in ("plain_seconds",
+                                               "mesh_seconds")},
+           "checks": checks, "seconds": time.perf_counter() - t0}
+    emit({"phase": "kv_seq_world", **out})
+    bad = [k for k, v in checks.items() if not v]
+    check(not bad, f"kv_seq world checks failed: {bad}")
+    return out
+
+
+def phase_serve_elastic() -> dict:
+    """The paper's end-to-end scenario (``launch/serve_elastic.py``) at
+    full width on the card: hotmem, vanilla and static on one bursty
+    trace.  Every mode completes what it submitted with nothing killed;
+    hotmem reclaims with no migration, vanilla migrates, static reclaims
+    nothing.  The launcher's six columns as a JSON line."""
+    import contextlib
+    import io
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runs = serve_elastic(device="cuda")
+    cols = ("completed", "latency_p99", "reclaimed_bytes", "migrated_bytes",
+            "reclaim_wall_s")
+    table = {mode: {"submitted": m["submitted"], "killed": m["killed"],
+                    **{c: m[c] for c in cols}} for mode, m in runs.items()}
+    checks = {f"{mode}_completed_all": m["completed"] == m["submitted"]
+              and m["killed"] == 0 for mode, m in runs.items()}
+    checks["hotmem_migrated_0"] = runs["hotmem"]["migrated_bytes"] == 0
+    checks["hotmem_reclaimed"] = runs["hotmem"]["reclaimed_bytes"] > 0
+    checks["vanilla_migrated"] = runs["vanilla"]["migrated_bytes"] > 0
+    checks["static_reclaimed_0"] = runs["static"]["reclaimed_bytes"] == 0
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"config": ARCH, "columns": table,
+           "printed": buf.getvalue().splitlines()[:4], "checks": checks,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "serve_elastic", **out})
+    bad = [k for k, v in checks.items() if not v]
+    check(not bad, f"serve_elastic checks failed: {bad}")
+    return out
+
+
+
+# ---------------------------------------------------------------------------
 # The analysis phase: the roofline of the steps measured above, and the dry
 # run on this machine's torch
 # ---------------------------------------------------------------------------
@@ -2858,6 +3303,13 @@ def main() -> None:
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
         return out
+    # a generator of its own, so that the later phases draw what they drew
+    kv_gen = torch.Generator(device=DEV)
+    kv_gen.manual_seed(1)
+    kv_row = timed("kv_seq_decode", phase_kv_seq_decode, kv_gen)
+    rows.append(kv_row)
+    torch.cuda.empty_cache()
+    summary_kv = timed("kv_seq_world", phase_kv_seq_world, kv_row)
     launches, params, summary = timed("engine", phase_engine, cfg, gen)
     cluster_launches, summary["cluster"] = timed("cluster", phase_cluster,
                                                  cfg, params, gen)
@@ -2865,6 +3317,8 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    summary["kv_seq_world"] = summary_kv
+    summary["serve_elastic"] = timed("serve_elastic", phase_serve_elastic)
     for arch in FAMILIES:
         more, summary[arch] = timed(arch, phase_family, arch, gen)
         rows += more
@@ -2890,8 +3344,8 @@ def main() -> None:
                 + cluster_launches[row["name"]]
             check(cluster_launches[row["name"]] > 0,
                   f"{row['name']} ran on the cluster path")
-        elif row["path"] == "family":
-            pass            # counted on its model's engine run
+        elif row["path"] in ("family", "kv_seq"):
+            pass            # counted on its model's engine or world run
         else:
             row["launches"] = row["path_launches"][row["name"]]
         check(row["launches"] > 0,

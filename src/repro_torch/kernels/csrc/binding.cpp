@@ -11,9 +11,10 @@
 #include <vector>
 
 int partition_attention(const void* q, const void* k, const void* v,
-                        const void* positions, void* out, int p, int t,
-                        int hkv, int g, int dh, int splits, int is_bf16,
-                        float scale, float cap, int window, void* stream);
+                        const void* positions, void* out, void* top,
+                        void* lsum, int p, int t, int hkv, int g, int dh,
+                        int splits, int is_bf16, float scale, float cap,
+                        int window, int off, int t_ring, void* stream);
 int partition_attention_prepare();
 int paged_attention(const void* q, const void* k, const void* v,
                     const void* tables, const void* positions, void* out,
@@ -37,18 +38,23 @@ void check(int err, const char* what) {
   TORCH_CHECK(err == 0, what, " failed: CUDA error ", err);
 }
 
-// q (P, Hkv, G, Dh), k/v (P, T, Hkv, Dh), out like q, positions (P,) int32;
-// splits the slices of each row
+// q (P, Hkv, G, Dh), k/v (P, T, Hkv, Dh) (slots [off, off + T) of a ring
+// of t_ring), out like q, positions (P,) int32; splits the slices of each
+// row.  With top and lsum (P, Hkv, G) f32 (empty tensors otherwise) the
+// call writes its softmax partials, out (f32) unnormalised.
 void attention(const torch::Tensor& q, const torch::Tensor& k,
                const torch::Tensor& v, const torch::Tensor& positions,
-               const torch::Tensor& out, int64_t splits, double scale,
-               double cap, int64_t window, int64_t stream) {
+               const torch::Tensor& out, const torch::Tensor& top,
+               const torch::Tensor& lsum, int64_t splits, double scale,
+               double cap, int64_t window, int64_t off, int64_t t_ring,
+               int64_t stream) {
   check(partition_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), q.size(0), k.size(1), q.size(1), q.size(2),
-            q.size(3), splits,
-            q.scalar_type() == torch::kBFloat16, scale, cap, window,
-            reinterpret_cast<void*>(stream)),
+            out.data_ptr(), top.numel() ? top.data_ptr() : nullptr,
+            lsum.numel() ? lsum.data_ptr() : nullptr, q.size(0), k.size(1),
+            q.size(1), q.size(2), q.size(3), splits,
+            q.scalar_type() == torch::kBFloat16, scale, cap, window, off,
+            t_ring, reinterpret_cast<void*>(stream)),
         "partition_attention launch");
 }
 

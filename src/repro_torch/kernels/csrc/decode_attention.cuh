@@ -45,6 +45,10 @@
 //     merge their f32 partials through distributed shared memory, each
 //     block writing a share of the output: one launch a call, with no
 //     workspace in device memory and no serial merge by one last block.
+//  5. Partials (Params::top set): the cluster's merge writes the row's
+//     merged max (natural-log units), normaliser and unnormalised output
+//     in f32 instead of the output, so that the blocks of a ring split
+//     over ranks merge as one softmax (kernels/ref.py's `partials`).
 //
 // Rows with no valid token keep the Pallas semantics: the kernels give
 // such a row its full range with every score at NEG_INF (the mean of V),
@@ -83,13 +87,16 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Everything a launch needs; one struct for both kernels.
 struct Params {
   const void* q;        // (P, Hkv, G, Dh)
-  const void* k;        // ring (P, T, Hkv, Dh) or pool (NB, BT, Hkv, Dh)
+  const void* k;        // ring block (P, T, Hkv, Dh) or pool (NB, BT, Hkv, Dh)
   const void* v;
-  void* out;            // (P, Hkv, G, Dh)
+  void* out;            // (P, Hkv, G, Dh): q's dtype, or f32 acc (partials)
+  float* top;           // (P, Hkv, G) f32, partials only (else null)
+  float* lsum;          // (P, Hkv, G) f32, partials only
   const int* positions; // (P,)
   const int* tables;    // (P, MB), paged only
   int p, hkv, g, dh, splits, g_blocks;
-  int t_len, window;    // ring
+  int t_len, window;    // ring: t_len slots of K/V rows held here
+  int t_ring, off;      // ring: they are slots [off, off + t_len) of t_ring
   int nb, bt, mb, tab_cap;   // paged; tab_cap = table entries a slice spans
   float scale, cap;
 };
@@ -552,9 +559,20 @@ __device__ __forceinline__ void run(const Params& prm, const Coords& c,
       ll += lsum[tid * kMaxSplits + s] * wg[s];
     }
     denom[tid] = fmaxf(ll, 1e-30f);
+    if (prm.top != nullptr && c.s == 0) {
+      // the row's partials: its max in natural-log units (NEG_INF itself
+      // where no token of the block scored: a masked row, or a block with
+      // no valid slot) and the normaliser at that max
+      const long long o = (long long)(c.p * prm.hkv + c.h) * prm.g + c.g0 +
+                          tid;
+      prm.top[o] = mm == kNegInf ? kNegInf : mm * (1.0f / kLog2e);
+      prm.lsum[o] = ll;
+    }
   }
   __syncthreads();
+  const bool partials = prm.top != nullptr;
   T* out = static_cast<T*>(prm.out) + q_off;
+  float* acc_out = static_cast<float*>(prm.out) + q_off;
   for (int i = c.s * kThreads + tid; i < c.ng * d4; i += splits * kThreads) {
     const int g = i / d4, d = (i - g * d4) * 4;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -574,6 +592,10 @@ __device__ __forceinline__ void run(const Params& prm, const Coords& c,
           a.z += x[u].z * e;
           a.w += x[u].w * e;
         }
+    }
+    if (partials) {                  // unnormalised, f32
+      *reinterpret_cast<float4*>(acc_out + g * dh + d) = a;
+      continue;
     }
     const float dn = denom[g];
     store(out + g * dh + d, a.x / dn);

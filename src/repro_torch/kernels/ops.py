@@ -77,16 +77,21 @@ def load():
 
 
 def partition_attention(q, k_cache, v_cache, positions, *, window=0,
-                        logit_cap=0.0, scale=None):
-    """q (P, Hkv, G, Dh); k/v_cache (P, T, Hkv, Dh); positions (P,) int32.
-    Returns (P, Hkv, G, Dh)."""
+                        logit_cap=0.0, scale=None, off=0, t=None,
+                        partials=False):
+    """q (P, Hkv, G, Dh); k/v_cache (P, T, Hkv, Dh), slots [off, off + T)
+    of a ring of ``t`` slots (default T); positions (P,) int32.  Returns
+    (P, Hkv, G, Dh) or, with ``partials``, the f32 softmax partials
+    (max, normaliser, unnormalised output) of ``ref.partition_attention``."""
     if q.device.type != "cuda":
         return ref.partition_attention(q, k_cache, v_cache, positions,
                                        window=window, logit_cap=logit_cap,
-                                       scale=scale)
-    out = _pa.partition_attention(load(), q,
-                                  k_cache, v_cache, positions, window=window,
-                                  logit_cap=logit_cap, scale=scale)
+                                       scale=scale, off=off, t=t,
+                                       partials=partials)
+    out = _pa.partition_attention(load(), q, k_cache, v_cache, positions,
+                                  window=window, logit_cap=logit_cap,
+                                  scale=scale, off=off, t=t,
+                                  partials=partials)
     LAUNCHES["partition_attention"] += 1
     return out
 

@@ -14,6 +14,11 @@ Each row's valid range is cut into ``num_splits`` slices, one block each,
 and the blocks of one (row, KV head, query block) form one thread-block
 cluster that merges their f32 partials through distributed shared memory:
 one launch a call, no workspace.
+
+The rows may be one block of a ring split along "kv_seq" over ranks
+(``off``, ``t``): the kernel then reads only the block's valid slots
+(``block_runs``) and, with ``partials``, returns its softmax partials for
+the ranks to merge (``models/attention.py::_decode_block``).
 """
 from __future__ import annotations
 
@@ -71,24 +76,49 @@ def check_head_dim(dh: int) -> None:
                          f"[16, 256] (the mma's depth)")
 
 
+def block_runs(pos: int, t: int, window: int, off: int,
+               tb: int) -> list[tuple[int, int]]:
+    """The valid slots of one row in a block of the ring, as the kernel
+    finds them (``partition_attention.cu``): slots ``[off, off + tb)`` of
+    a ring of ``t``, the row at ``pos``.  At most two runs ``[s0, s1)``
+    of block-local slots, in the order of the row's valid range; a row
+    with ``pos < 0`` takes the whole block (every slot at NEG_INF)."""
+    if pos < 0:
+        return [(0, tb)]
+    n = min(pos + 1, t, window or t)
+    d = (off - (pos - n + 1) % t) % t
+    a0 = t - d
+    runs = [(a0, min(tb, a0 + n)), (0, max(0, min(tb, t - d, n - d)))]
+    return [r for r in runs if r[1] > r[0]]
+
+
 def partition_attention(ext, q, k_cache, v_cache, positions, *,
                         window: int = 0, logit_cap: float = 0.0,
-                        scale: float | None = None):
-    """q (P, Hkv, G, Dh); k/v_cache (P, T, Hkv, Dh); positions (P,) int32,
-    all on one CUDA device; ``ext`` the kernels' extension module
-    (``ops.load()``).  Returns (P, Hkv, G, Dh) in q's dtype."""
+                        scale: float | None = None, off: int = 0,
+                        t: int | None = None, partials: bool = False):
+    """q (P, Hkv, G, Dh); k/v_cache (P, T, Hkv, Dh), slots ``[off, off +
+    T)`` of a ring of ``t`` slots (default T); positions (P,) int32, all
+    on one CUDA device; ``ext`` the kernels' extension module
+    (``ops.load()``).  Returns (P, Hkv, G, Dh) in q's dtype or, with
+    ``partials``, the f32 softmax partials (max (P, Hkv, G), normaliser
+    (P, Hkv, G), unnormalised output (P, Hkv, G, Dh)) of
+    ``ref.partition_attention``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"partition_attention runs on CUDA tensors, "
                          f"got {dev}")
     p, hkv, g, dh = q.shape
-    t = k_cache.shape[1]
-    if tuple(k_cache.shape) != (p, t, hkv, dh) \
+    tb = k_cache.shape[1]
+    t = tb if t is None else t
+    if tuple(k_cache.shape) != (p, tb, hkv, dh) \
             or v_cache.shape != k_cache.shape \
             or tuple(positions.shape) != (p,):
         raise ValueError(f"shapes q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
                          f"positions {tuple(positions.shape)} do not agree")
+    if not (0 <= off and off + tb <= t):
+        raise ValueError(f"a block of {tb} slots at {off} does not lie in "
+                         f"a ring of {t}")
     if q.dtype not in (torch.bfloat16, torch.float32) \
             or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype, bf16 or f32")
@@ -105,10 +135,18 @@ def partition_attention(ext, q, k_cache, v_cache, positions, *,
             raise ValueError("K/V must be 16-byte aligned")
     if scale is None:
         scale = dh ** -0.5
-    out = torch.empty_like(q)
+    if partials:
+        f32 = torch.float32
+        top = torch.empty((p, hkv, g), dtype=f32, device=dev)
+        lsum = torch.empty((p, hkv, g), dtype=f32, device=dev)
+        out = torch.empty((p, hkv, g, dh), dtype=f32, device=dev)
+    else:
+        top = lsum = torch.empty(0, dtype=torch.float32, device=dev)
+        out = torch.empty_like(q)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ext.partition_attention(q, k_cache, v_cache, positions, out,
-                                splits_for(q, t), float(scale),
-                                float(logit_cap), int(window), stream)
-    return out
+        ext.partition_attention(q, k_cache, v_cache, positions, out, top,
+                                lsum, splits_for(q, tb), float(scale),
+                                float(logit_cap), int(window), int(off),
+                                int(t), stream)
+    return (top, lsum, out) if partials else out

@@ -73,10 +73,12 @@ def main() -> None:
         rows = pos.shape[0]
         qr = q[:rows]
         out = torch.empty_like(qr)
+        none = torch.empty(0, dtype=torch.float32, device=dev)
         picked = pa.num_splits(rows, hkv, g, t, sms)
         for splits in SPLITS:
             part = _median_ms(lambda s=splits: ext.partition_attention(
-                qr, k[:rows], v[:rows], pos, out, s, scale, 0.0, 0, stream),
+                qr, k[:rows], v[:rows], pos, out, none, none, s, scale, 0.0,
+                0, 0, t, stream),
                 flush)
             paged = _median_ms(lambda s=splits: ext.paged_attention(
                 qr, k_pool, v_pool, tables[:rows], pos, out, s, scale, 0.0,

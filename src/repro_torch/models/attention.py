@@ -31,7 +31,7 @@ from functools import partial
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, f32, softcap)
 from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
@@ -237,15 +237,12 @@ def _decode_block(qg, kn, vn, kc, vc, pos, *, t: int, axes, window, scale,
     where this block holds it, then attend.  Over a whole cache (``axes``
     of one rank) that is the attention kernel.  Over a block of a cache
     split along "kv_seq", each rank forms its partial softmax (max,
-    normaliser, unnormalised output) with the plain version's
-    ``partials``, and the ranks merge them: an all-reduce max and two sums
-    over ``axes``, the all-reduces GSPMD places for the reference's decode
-    attention."""
-    ranks = current_ctx().axis_size(axes) if axes else 1
-    if ranks > 1 and qg.device.type == "cuda":
-        raise NotImplementedError(
-            f"decode over a kv_seq axis of {ranks} ranks needs the attention "
-            "kernel to return its log-sum-exp, which it does not yet")
+    normaliser, unnormalised output) with the kernel's ``partials``, and
+    the ranks merge them (``merge_partials``): an all-reduce max and two
+    sums over ``axes``, the all-reduces GSPMD places for the reference's
+    decode attention."""
+    ctx = current_ctx()
+    ranks = ctx.axis_size(axes) if axes else 1
     tb = kc.shape[1]
     off = block_start(axes, tb)
     slot = torch.remainder(pos.long(), t) - off
@@ -258,24 +255,38 @@ def _decode_block(qg, kn, vn, kc, vc, pos, *, t: int, axes, window, scale,
             mine = ((slot >= 0) & (slot < tb))[:, None, None]
             idx = slot.clamp(0, tb - 1)
             c[rows, idx] = torch.where(mine, new, c[rows, idx])
+    kw = dict(window=window, logit_cap=cap, scale=scale)
     if ranks == 1:
-        return ops.partition_attention(qg, kc, vc, pos.to(torch.int32),
-                                       window=window, logit_cap=cap,
-                                       scale=scale)
-    top, l, acc = ref.partition_attention(
-        qg, kc, vc, pos, window=window, logit_cap=cap, scale=scale, off=off,
-        t=t, partials=True)
-    ctx = current_ctx()
-    m = top.clone()
-    for a in axes:
-        if ctx.shape[a] > 1:
-            dist.all_reduce(m, op=dist.ReduceOp.MAX,
-                            group=ctx.mesh.get_group(a))
+        return ops.partition_attention(qg, kc, vc, pos.to(torch.int32), **kw)
+    top, l, acc = ops.partition_attention(qg, kc, vc, pos.to(torch.int32),
+                                          off=off, t=t, partials=True, **kw)
+
+    def amax(x):
+        x = x.clone()
+        for a in axes:
+            if ctx.shape[a] > 1:
+                dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                                group=ctx.mesh.get_group(a))
+        return x
+
+    def total(x):
+        for a in axes:
+            x = psum(x, a)
+        return x
+    return merge_partials(top, l, acc, amax, total).to(vc.dtype)
+
+
+def merge_partials(top, l, acc, amax, total):
+    """Blocks' softmax partials (max, normaliser, unnormalised output) as
+    one softmax's output: with ``amax``/``total`` the max and the sum over
+    the blocks (all-reduces over ranks, or reductions over a stacked dim
+    with ``keepdim``), sum(acc * e) / sum(l * e), e = exp(max - the
+    blocks' max).  A block with no valid slot has max NEG_INF and weighs
+    exactly 0; a row with no valid slot anywhere (pos < 0) takes every
+    block at weight 1, the mean of V over the ring."""
+    m = amax(top)
     e = torch.exp(top - m)
-    acc, l = acc * e[..., None], l * e
-    for a in axes:
-        acc, l = psum(acc, a), psum(l, a)
-    return (acc / l[..., None]).to(vc.dtype)
+    return total(acc * e[..., None]) / total(l * e)[..., None]
 
 
 def make_attn_cache_spec(cfg, batch: int, cache_len: int, window: int = 0):

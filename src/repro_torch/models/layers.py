@@ -219,6 +219,9 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
     w = gather_weight(p["w"], x)
     if w.dtype == torch.int8:
         w = w.to(x.dtype) * p["qscale"].to(x.dtype)
+    if w.dtype != x.dtype:        # mixed: promote both, as JAX's ``@`` does
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
     y = x @ w
     if "b" in p:
         y = y + p["b"]

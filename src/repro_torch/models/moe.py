@@ -60,7 +60,8 @@ def route(cfg, p, xt):
     """Top-k routing of tokens ``xt`` (N, D) in f32: softmax over the
     experts, the k largest, renormalised.  Returns (weights, experts),
     each (N, K) with the largest weight first."""
-    probs = torch.softmax(xt.to(f32) @ p["router"], dim=-1)     # (N, E)
+    # a bf16 router (a tree cast whole) is promoted, as JAX promotes it
+    probs = torch.softmax(xt.to(f32) @ p["router"].to(f32), dim=-1)
     top_w, top_e = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9), top_e
 

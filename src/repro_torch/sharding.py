@@ -427,9 +427,12 @@ def named_sharding(axes: tuple[Optional[str], ...], shape: tuple[int, ...],
 
 def distribute(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """Distribute the full tensor ``x`` (the same on every rank) onto
-    ``sharding``: each rank keeps only its own block."""
+    ``sharding``: each rank keeps only its own block, cut from its own
+    copy, so that placing runs no collective (no scatter or broadcast
+    from rank 0)."""
     from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(x, sharding.mesh, sharding.placements)
+    return distribute_tensor(x, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
 
 
 # ---------------------------------------------------------------------------

@@ -76,7 +76,16 @@ TRAIN_CASES = [("dp", "tinyllama-1.1b", None, 1, 2),
                ("mixtral_tp", "mixtral-8x7b", None, 1, 1),
                ("gemma2_tp", "gemma2-9b", None, 1, 1),
                ("mamba2_tp", "mamba2-780m", False, 1, 1),
-               ("rglru_tp", "recurrentgemma-2b", False, 1, 1)]
+               ("rglru_tp", "recurrentgemma-2b", False, 1, 1),
+               ("seamless_tp", "seamless-m4t-medium", False, 1, 1),
+               ("qwen2vl_tp", "qwen2-vl-72b", False, 1, 1)]
+# cases whose weights are f32 (the master weights' values): qwen2-vl's key
+# bias, which the softmax nearly ignores (only RoPE's rotation reaches its
+# gradient), has a gradient at the level of its own bf16 rounding (the
+# unsharded bf16 gradient is 1.2 % of its norm from the f32 one, the
+# sharded 1.1 %), so Adam's first update, about lr * sign(g), flips on a
+# fifth of its elements whichever bf16 run is the reference
+F32_CASES = ("qwen2vl_tp",)
 # held to JAX's step; the other archs to the port's unsharded step from the
 # same JAX weights (itself held to JAX by tests/test_torch_training.py and
 # tests/test_torch_recurrent_grads.py), which keeps the file's JAX
@@ -178,25 +187,68 @@ def _template(cfg):
 # ---------------------------------------------------------------------------
 
 
+def _train_batch(cfg, batch: dict) -> dict:
+    """The batch and the inputs a family adds: stub frames for the
+    encoder (its "src" axis), stub patches over the first tokens and
+    (3, B, S) M-RoPE positions whose sections differ (the patches' grid
+    rows and columns) for the VLM."""
+    rng = np.random.default_rng(13)
+    b, s = batch["tokens"].shape
+    out = dict(batch)
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_src_len, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        n = cfg.vision_stub_tokens
+        pos = np.broadcast_to(np.arange(s, dtype=np.int32), (3, b, s)).copy()
+        pos[1, :, :n], pos[2, :, :n] = np.arange(n) // 2, np.arange(n) % 2
+        out["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, n, cfg.d_model)).astype(np.float32))
+        out["positions"] = torch.from_numpy(pos)
+    return out
+
+
+def _batch_to_mesh(batch: dict, mesh, rules) -> dict:
+    """``launch/train.py``'s ``batch_to_mesh``, with M-RoPE positions
+    (3, B, S) placed on (None, "batch", "seq")."""
+    from repro_torch.launch.train import batch_to_mesh
+    from repro_torch.sharding import named_sharding
+    out = batch_to_mesh({k: v for k, v in batch.items()
+                         if k != "positions"}, mesh, rules)
+    if "positions" in batch:
+        pos = batch["positions"]
+        out["positions"] = S.distribute(pos, named_sharding(
+            (None, "batch", "seq"), tuple(pos.shape), mesh, rules))
+    return out
+
+
+def _case_state(name: str, state: dict) -> dict:
+    """The restored state, its params in f32 for ``F32_CASES``."""
+    if name in F32_CASES:
+        state["params"] = tree_map(lambda x: x.float(), state["params"])
+    return state
+
+
 def _group_train(workdir: Path) -> dict:
     """Every train case on a data 2 x model 2 mesh: the JAX initial state
     restored onto the mesh's placements, then ``make_train_step`` under
     ``sharding_ctx``; then the checkpoint cases (``_ckpt_cases``)."""
-    from repro_torch.launch.train import (batch_to_mesh, scalar,
-                                          state_shardings)
+    from repro_torch.launch.train import scalar, state_shardings
     from repro_torch.sharding import sharding_ctx, train_rules_for
     from repro_torch.training.optimizer import AdamWConfig
     from repro_torch.training.train_step import make_train_step
     mesh = _mesh((2, 2))
     b = np.load(workdir / "batch.npz")
-    batch = {k: torch.from_numpy(b[k]) for k in ("tokens", "labels")}
+    tokens = {k: torch.from_numpy(b[k]) for k in ("tokens", "labels")}
     out = {}
     for name, arch, dp_only, accum, steps in TRAIN_CASES:
         cfg = reduced(get_config(arch))
+        batch = _train_batch(cfg, tokens)
         rules = train_rules_for(cfg, dp_only=dp_only)
         target = state_shardings(cfg, mesh, rules)
-        state = ckpt.restore(str(workdir / f"jax_{arch}"), 0,
-                             _template(cfg), placements=target)
+        state = _case_state(name, ckpt.restore(
+            str(workdir / f"jax_{arch}"), 0, _template(cfg),
+            placements=target))
         step_fn = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
                                   grad_accum=accum)
         master0 = _opt_leaves(state)["master"]
@@ -204,7 +256,7 @@ def _group_train(workdir: Path) -> dict:
         grad_errs = _grad_errors(cfg, state, batch, mesh, rules)
         with sharding_ctx(mesh, rules):
             for _ in range(steps):
-                state, m = step_fn(state, batch_to_mesh(batch, mesh, rules))
+                state, m = step_fn(state, _batch_to_mesh(batch, mesh, rules))
                 metrics.append((scalar(m["loss"]), scalar(m["grad_norm"])))
         shapes_ok = all(_local_shapes_ok(state[k] if k == "params"
                                          else state["opt"][k], target[
@@ -216,8 +268,8 @@ def _group_train(workdir: Path) -> dict:
                                 tree_leaves(state["params"])],
                      "master0": master0, "opt": _opt_leaves(state)}
         if arch not in JAX_REF_ARCHS:
-            out[name]["plain"] = _plain_run(arch, cfg, workdir, batch,
-                                            accum, steps)
+            out[name]["plain"] = _plain_run(name, arch, cfg, workdir,
+                                            batch, accum, steps)
     out["ckpt"] = _ckpt_cases(workdir)
     out["launcher"] = _launcher_case(workdir)
     out["xent"] = _xent_cases(mesh)
@@ -352,24 +404,24 @@ def _grad_errors(cfg, state, batch, mesh, rules) -> list[float]:
     """Each leaf's gradient on the mesh against the port's unsharded
     gradient of the same weights and batch, as a share of the latter's
     norm (a gradient summed over too few ranks shows as a large share)."""
-    from repro_torch.launch.train import batch_to_mesh
     from repro_torch.sharding import sharding_ctx
     from repro_torch.training.train_step import value_and_grad
     with sharding_ctx(mesh, rules):
         _, got = value_and_grad(cfg, state["params"],
-                                batch_to_mesh(batch, mesh, rules))
+                                _batch_to_mesh(batch, mesh, rules))
     _, want = value_and_grad(cfg, tree_map(_full, state["params"]), batch)
     return [float((_full(g).float() - w.float()).norm()
                   / (w.float().norm() + 1e-12))
             for g, w in zip(tree_leaves(got), tree_leaves(want), strict=True)]
 
 
-def _plain_run(arch, cfg, workdir, batch, accum, steps) -> dict:
+def _plain_run(name, arch, cfg, workdir, batch, accum, steps) -> dict:
     """The port's unsharded step from the same JAX weights and batch."""
     from repro_torch.launch.train import scalar
     from repro_torch.training.train_step import make_train_step
     from repro_torch.training.optimizer import AdamWConfig
-    state = ckpt.restore(str(workdir / f"jax_{arch}"), 0, _template(cfg))
+    state = _case_state(name, ckpt.restore(str(workdir / f"jax_{arch}"), 0,
+                                           _template(cfg)))
     step_fn = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
                               grad_accum=accum)
     metrics, lrs = [], []

@@ -104,9 +104,10 @@ def _tokens(cfg):
         0, cfg.vocab_size, size=(BATCH, PROMPT + STEPS)).astype(np.int32)
 
 
-def _jax_params(workdir: Path) -> dict:
-    """The JAX package's ``PRNGKey(0)`` weights of every arch, as numpy
-    trees; saved in ``workdir`` as the port's tensors for the ranks."""
+def _jax_params(workdir: Path, cases=CASES) -> dict:
+    """The JAX package's ``PRNGKey(0)`` weights of every arch of
+    ``cases``, as numpy trees; saved in ``workdir`` as the port's tensors
+    for the ranks."""
     import jax
 
     from repro.configs.base import get_config as jax_get_config
@@ -114,7 +115,7 @@ def _jax_params(workdir: Path) -> dict:
     from repro.models import model as JM
     from repro_torch.convert import tree_from_numpy
     out = {}
-    for arch in dict.fromkeys(a for a, _ in CASES):
+    for arch in dict.fromkeys(a for a, _ in cases):
         jp = jax.device_get(JM.init_params(
             jax_reduced(jax_get_config(arch)), jax.random.PRNGKey(0)))
         torch.save(tree_from_numpy(jp, "cpu"), workdir / f"{arch}.pt")
@@ -304,20 +305,56 @@ def test_each_cache_leaf_holds_only_its_shard(arch, shape, dtype, served):
             or not want.abs().max()
 
 
-def test_decode_over_a_split_kv_seq_raises_on_the_card():
-    """On a card, decode over a kv_seq axis of more than one rank needs
-    the attention kernel's log-sum-exp; the path raises rather than take
-    the plain version."""
-    from repro_torch.models.attention import _decode_block
+def test_decode_over_a_split_kv_seq_takes_the_kernel_partials(monkeypatch):
+    """Over a kv_seq axis of more than one rank, ``_decode_block`` asks the
+    kernel's wrapper (``ops.partition_attention``, which launches the CUDA
+    kernel on the card) for its block's partials, with the block's offset
+    and the ring's length, and merges them; it calls no plain version
+    itself.  One process: the all-reduces are left out, so the merge is
+    this rank's block alone."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as A
 
-    class OnCard:
-        device = torch.device("cuda")
+    assert not hasattr(A, "ref")
+    calls, kernel = [], ops.partition_attention
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return kernel(*args, **kw)
 
     class Mesh:
-        shape = {"data": 2, "model": 2}
+        shape = {"data": 1, "model": 2}
 
+        @staticmethod
+        def get_local_rank(axis):
+            return 1 if axis == "model" else 0
+
+        @staticmethod
+        def get_group(axis):
+            return None
+
+    monkeypatch.setattr(A.ops, "partition_attention", spy)
+    monkeypatch.setattr(A.dist, "all_reduce", lambda x, **kw: None)
+    monkeypatch.setattr(A, "psum", lambda x, axis: x)
+    rng = np.random.default_rng(3)
+    b, tb, hkv, g, dh = 3, 8, 2, 3, 16
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    qg, kn, vn = randn(b, hkv, g, dh), randn(b, hkv, dh), randn(b, hkv, dh)
+    kc, vc = randn(b, tb, hkv, dh), randn(b, tb, hkv, dh)
+    pos = torch.tensor([12, 28, 3], dtype=torch.int32)   # 3: another rank's
+    before = kc[2].clone()
     with S.sharding_ctx(Mesh(), S.serve_rules_for(
             reduced(get_config("qwen2-7b")), "decode_32k")):
-        with pytest.raises(NotImplementedError, match="log-sum-exp"):
-            _decode_block(OnCard(), None, None, None, None, None, t=16,
-                          axes=("model",), window=0, scale=1.0, cap=0.0)
+        got = A._decode_block(qg, kn, vn, kc, vc, pos, t=2 * tb,
+                              axes=("model",), window=0, scale=0.25,
+                              cap=0.0)
+    assert len(calls) == 1
+    assert {k: calls[0][k] for k in ("partials", "off", "t")} == \
+        {"partials": True, "off": tb, "t": 2 * tb}
+    assert torch.equal(kc[0, 12 - tb], kn[0]) and torch.equal(vc[1, 4], vn[1])
+    assert torch.equal(kc[2], before)
+    top, l, acc = ref.partition_attention(qg, kc, vc, pos, scale=0.25,
+                                          off=tb, t=2 * tb, partials=True)
+    torch.testing.assert_close(got, acc / l[..., None])
