@@ -4,9 +4,12 @@ NVIDIA card: builds the hand-written kernels, holds each against its plain
 PyTorch version at the shapes of the main path, drives the layout-contrast
 entry point (``launch/kernel_demo.py::layout_contrast``) at full width,
 decodes over a cache split along "kv_seq" (the attention kernel on blocks
-of the ring returning its softmax partials, merged as ranks merge them,
-then full-width qwen2-7b on a world of two gloo ranks on this card, held
-to the unsharded run), then drives the hotmem ``ServeEngine`` on
+of the ring returning its softmax partials, merged as ranks merge them),
+then serves full-width qwen2-7b and gemma2-9b on worlds of two gloo ranks
+on this card (the cache split along "kv_seq" with the weights whole, and
+tensor-parallel under the serving rules, heads, MLP and vocab split too,
+every collective through the port's own c10d path), each held to the
+unsharded run, then drives the hotmem ``ServeEngine`` on
 full-width qwen2-7b (random weights from a seed) through cold start,
 warm start, snapshot capture,
 restore, the paged copy-on-write remap, plug and unplug, and the vanilla
@@ -45,6 +48,7 @@ over stub frames, prefill, decode against the train forward and a train
 step; it checks what comes out.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py worlds      # the build and the two-rank worlds
 
 Every phase prints a JSON line (the cluster phase a second one with every
 steal's wall).  The script fails (raises, non-zero exit)
@@ -2930,8 +2934,8 @@ def phase_kv_seq_decode(gen) -> dict:
     return row
 
 
-_KV_SEQ_WORLD = r"""
-import json, sys, time
+_WORLD = r"""
+import gc, json, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -2949,20 +2953,35 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import (tree_flatten, tree_leaves,
                                        tree_unflatten)
 rows, prompt, steps, t = (int(x) for x in sys.argv[5:9])
-cfg = get_config(sys.argv[9])
+# "arch:mode,mode;arch:mode"
+runs = [(a, m.split(",")) for a, m in
+        (r.split(":") for r in sys.argv[9].split(";"))]
 ops.load()
 print("kernels loaded", flush=True)
-toks = torch.from_numpy(np.random.default_rng(0).integers(
-    0, cfg.vocab_size, size=(rows, prompt + steps)).astype(np.int32))
 
 
-def run(params, caches, place):
-    logits = []
+def diff(after, before):
+    return {k: {n: v - before[k].get(n, 0) for n, v in after[k].items()}
+            for k in ("counts", "bytes")}
+
+
+def run(cfg, params, caches, place, count=None):
+    # prefill, then the decode steps, each timed to a synchronize; the
+    # collectives of each decode step; the logits gathered whole through
+    # the port's own collective, after the timed steps
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(rows, prompt + steps)).astype(np.int32))
+    logits, per_step = [], []
     with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         lg, caches = M.prefill(cfg, params, {"tokens": place(
             toks[:, :prompt].to(device), ("batch", "seq"))}, caches)
         logits.append(lg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         for i in range(steps):
+            before = count.snapshot() if count else None
             pos = torch.full((rows,), prompt + i, dtype=torch.int32,
                              device=device)
             lg, caches = M.decode_step(
@@ -2970,57 +2989,103 @@ def run(params, caches, place):
                     device), ("batch", None)), place(pos, ("batch",)),
                 caches)
             logits.append(lg)
-    logits = torch.stack([x.full_tensor() if S.is_dtensor(x) else x
-                          for x in logits]).float()
+            if count:
+                per_step.append(diff(count.snapshot(), before))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    logits = torch.stack([S.full_tensor(x) for x in logits]).float()
     torch.cuda.synchronize()
-    return logits, caches
+    return logits, caches, {"prefill_seconds": t1 - t0,
+                            "steps_seconds": t2 - t1}, per_step
 
 
-res = {"rank": rank}
-if rank == 0:
-    params = M.init_params(cfg, 0, device=device)
-    t0 = time.perf_counter()
-    plain, _ = run(params, M.init_caches(cfg, rows, t, device=device),
-                   lambda x, axes: x)
-    res["plain_seconds"] = time.perf_counter() - t0
-    del params
-    print("unsharded run done", flush=True)
-mesh = make_host_mesh(device)
-# the serving rules' cache split, the weights whole on each rank
-rules = dict(S.serve_rules_for(cfg, "decode_32k"), heads=None, mlp=None,
-             vocab=None)
-params = M.init_params(cfg, 0, device=device, mesh=mesh, rules=rules)
-csh = M.cache_shardings(cfg, rows, t, mesh, rules)
-caches = M.init_caches(cfg, rows, t, device=device)
-flat = tree_leaves(caches)
-leaves = [S.distribute(x, sh) for x, sh in zip(flat, tree_leaves(csh))]
-caches = tree_unflatten(tree_flatten(caches)[1], leaves)
-del flat
-torch.cuda.empty_cache()
-print("placed on the mesh", flush=True)
+def shards_ok(tree, shardings):
+    return all(
+        S.is_dtensor(x) and x.placements == sh.placements
+        and tuple(x.to_local().shape) == sh.shard_shape(tuple(x.shape))
+        for x, sh in zip(tree_leaves(tree), tree_leaves(shardings),
+                         strict=True))
 
 
-def place(x, axes):
-    return S.distribute(x, S.named_sharding(axes, tuple(x.shape), mesh,
-                                            rules))
+def nbytes(x):
+    return x.numel() * x.element_size()
 
 
-ops.reset_launches()
-t0 = time.perf_counter()
-with S.sharding_ctx(mesh, rules):
-    logits, caches = run(params, caches, place)
-res["mesh_seconds"] = time.perf_counter() - t0
-res["launches"] = dict(ops.LAUNCHES)
-res["kv_split"] = [tuple(sh.spec) for sh in tree_leaves(csh)]
-res["shards_ok"] = all(
-    S.is_dtensor(x) and x.placements == sh.placements
-    and tuple(x.to_local().shape) == sh.shard_shape(tuple(x.shape))
-    for x, sh in zip(tree_leaves(caches), tree_leaves(csh), strict=True))
-if rank == 0:
-    res["finite"] = bool(torch.isfinite(logits).all())
-    res["max_abs_err"] = float((logits - plain).abs().max())
-    res["max_abs_logit"] = float(plain.abs().max())
-    res["shape"] = list(logits.shape)
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+res, mesh = {"rank": rank, "archs": {}}, None
+for arch, modes in runs:
+    cfg, rec_arch = get_config(arch), {"modes": {}}
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, 0, device=device)
+        plain, _, rec_arch["plain"], _ = run(
+            cfg, params, M.init_caches(cfg, rows, t, device=device),
+            lambda x, axes: x)
+        rec_arch["plain_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del params
+        free()
+        print(f"{arch}: unsharded run done", flush=True)
+    mesh = mesh or make_host_mesh(device)
+    for mode in modes:
+        rules = S.serve_rules_for(cfg, "decode_32k")
+        if mode == "kv_seq":
+            # the serving rules' cache split, the weights whole on each rank
+            rules = dict(rules, heads=None, mlp=None, vocab=None)
+        torch.cuda.reset_peak_memory_stats()
+        params = M.init_params(cfg, 0, device=device, mesh=mesh,
+                               rules=rules)
+        psh = M.param_shardings(cfg, mesh, rules)
+        csh = M.cache_shardings(cfg, rows, t, mesh, rules)
+        caches = M.init_caches(cfg, rows, t, device=device)
+        flat = tree_leaves(caches)
+        caches = tree_unflatten(tree_flatten(caches)[1], [
+            S.distribute(x, sh) for x, sh in zip(flat, tree_leaves(csh))])
+        del flat
+        free()
+        print(f"{arch} {mode}: placed on the mesh", flush=True)
+
+        def place(x, axes):
+            return S.distribute(x, S.named_sharding(axes, tuple(x.shape),
+                                                    mesh, rules))
+
+        ops.reset_launches()
+        dist.barrier()                  # both ranks start the clock here
+        with S.CollectiveCount() as count, S.sharding_ctx(mesh, rules):
+            logits, caches, rec, per_step = run(cfg, params, caches, place,
+                                                count)
+        w = tree_leaves(params)
+        rec.update(
+            launches=dict(ops.LAUNCHES), functional=count.functional,
+            collectives=count.snapshot(), per_step=per_step,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            kv_split=[tuple(sh.spec) for sh in tree_leaves(csh)],
+            weights_split=sum(any(not p.is_replicate() for p in x.placements)
+                              for x in w),
+            weight_bytes={"rank": sum(nbytes(x.to_local()) for x in w),
+                          "model": sum(nbytes(x) for x in w),
+                          "replicated": sum(nbytes(x) for x in w if
+                                            x.to_local().numel()
+                                            == x.numel())},
+            weight_shards_ok=shards_ok(params, psh),
+            shards_ok=shards_ok(caches, csh))
+        if rank == 0:
+            err = (logits - plain).abs()
+            rec.update(finite=bool(torch.isfinite(logits).all()),
+                       max_abs_err=float(err.max()),
+                       step_errors=err.amax((1, 2)).tolist(),
+                       max_abs_logit=float(plain.abs().max()),
+                       shape=list(logits.shape))
+        rec_arch["modes"][mode] = rec
+        del params, caches, logits, w
+        free()
+        print(f"{arch} {mode}: run done", flush=True)
+    res["archs"][arch] = rec_arch
+    if rank == 0:
+        del plain
 with open(out, "w") as f:
     json.dump(res, f)
 dist.barrier()
@@ -3028,29 +3093,32 @@ dist.destroy_process_group()
 """
 
 
-def run_kv_seq_world() -> list[dict]:
-    """``_KV_SEQ_WORLD`` in ``KV_SEQ_WORLD`` processes on one gloo group
-    (on the card: both on cuda:0; NCCL refuses two ranks on one device,
-    gloo all-reduces CUDA tensors through the host): a (1, 2) host mesh,
-    ``serve_rules_for(cfg, "decode_32k")``'s cache split, so "kv_seq"
-    spans the ranks, with the weights whole on each rank (their tensor-
-    parallel split needs DTensor's functional all-gather, which dies of a
-    segmentation fault under gloo on CUDA tensors with torch 2.11; the CPU
-    tests hold that split to JAX); rank 0 also runs the same steps
-    unsharded.  Returns each rank's record; every process is killed at
-    the timeout or a failure."""
+def run_world(runs: tuple) -> list[dict]:
+    """``_WORLD`` in ``KV_SEQ_WORLD`` processes on one gloo group (on the
+    card: both on cuda:0; NCCL refuses two ranks on one device, gloo moves
+    CUDA tensors through the host), a (1, 2) host mesh.  For each (arch,
+    modes) of ``runs``, full-width: rank 0 first unsharded, then every
+    rank through each mode on the mesh: "kv_seq" takes
+    ``serve_rules_for(cfg, "decode_32k")``'s cache split with the weights
+    whole on each rank, "tp" those rules unmodified (heads, MLP and vocab
+    split over "model" too), every collective through
+    ``sharding.redistribute``'s c10d ones.  Returns each rank's record
+    (arch -> its runs); every process is killed at the timeout or a
+    failure."""
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    tmp = tempfile.mkdtemp(prefix="kv_seq_world")
+    tmp = tempfile.mkdtemp(prefix="world")
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
+    spec = ";".join(f"{arch}:{','.join(modes)}" for arch, modes in runs)
     procs = [subprocess.Popen(
-        [sys.executable, "-X", "faulthandler", "-c", _KV_SEQ_WORLD, str(r),
+        [sys.executable, "-X", "faulthandler", "-c", _WORLD, str(r),
          str(KV_SEQ_WORLD), str(port), f"{tmp}/rank{r}.json",
          str(KV_SEQ_ROWS), str(KV_SEQ_PROMPT), str(KV_SEQ_STEPS),
-         str(PARTITION_TOKENS), ARCH], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(KV_SEQ_WORLD)]
+         str(PARTITION_TOKENS), spec], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(KV_SEQ_WORLD)]
     try:
         outs = [p.communicate(timeout=KV_SEQ_TIMEOUT_S)[0] for p in procs]
     finally:
@@ -3060,30 +3128,30 @@ def run_kv_seq_world() -> list[dict]:
                 p.communicate()
     bad = [(r, p.returncode, o[-4000:]) for r, (p, o) in
            enumerate(zip(procs, outs)) if p.returncode != 0]
-    check(not bad, f"kv_seq world failed (rank, exit code, output): {bad}")
-    return [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+    check(not bad, f"world failed (rank, exit code, output): {bad}")
+    return [json.loads(Path(f"{tmp}/rank{r}.json").read_text())["archs"]
             for r in range(KV_SEQ_WORLD)]
 
 
-def phase_kv_seq_world(row: dict) -> dict:
+def phase_kv_seq_world(row: dict, recs: list[dict]) -> dict:
     """Full-width qwen2-7b decoding over a "kv_seq" axis of two ranks on
-    this card (``run_kv_seq_world``): 2 rows, a 2048-slot cache, a
-    1536-token prefill and 8 decode steps; the logits within 2e-2 of the
-    largest of the unsharded run's, every cache leaf its shard, and the
-    partials kernel launched on both ranks (one launch a layer a step),
-    which is ``row``'s launch count."""
+    this card (``run_world``'s "kv_seq" mode: the weights whole on each
+    rank): 2 rows, a 2048-slot cache, a 1536-token prefill and 8 decode
+    steps; the logits within 2e-2 of the largest of the unsharded run's,
+    every cache leaf its shard, and the partials kernel launched on both
+    ranks (one launch a layer a step), which is ``row``'s launch count."""
     t0 = time.perf_counter()
-    recs = run_kv_seq_world()
     cfg = get_config(ARCH)
-    launches = [r["launches"]["partition_attention"] for r in recs]
+    modes = [r["modes"]["kv_seq"] for r in recs]
+    launches = [m["launches"]["partition_attention"] for m in modes]
     want = _attention_layers(cfg) * KV_SEQ_STEPS
-    r0 = recs[0]
+    r0 = modes[0]
     checks = {"finite": r0["finite"],
               "logits_within_2e-2": r0["max_abs_err"]
               <= 2e-2 * r0["max_abs_logit"],
               "kv_seq_split_over_model": any(
                   len(s) >= 3 and s[-3] == "model" for s in r0["kv_split"]),
-              "shards_ok": all(r["shards_ok"] for r in recs),
+              "shards_ok": all(m["shards_ok"] for m in modes),
               "partials_on_every_rank": launches == [want] * KV_SEQ_WORLD}
     row["launches"] = sum(launches)
     out = {"config": cfg.name, "world": KV_SEQ_WORLD, "backend": "gloo",
@@ -3091,14 +3159,119 @@ def phase_kv_seq_world(row: dict) -> dict:
            "prompt": KV_SEQ_PROMPT, "steps": KV_SEQ_STEPS,
            "max_abs_err": r0["max_abs_err"],
            "max_abs_logit": r0["max_abs_logit"],
+           "step_errors": r0["step_errors"],
            "launches_per_rank": launches, "expected_per_rank": want,
-           "rank_seconds": {k: r0[k] for k in ("plain_seconds",
-                                               "mesh_seconds")},
+           "rank_seconds": {
+               "plain_seconds": sum(recs[0]["plain"].values()),
+               "mesh_seconds": r0["prefill_seconds"] + r0["steps_seconds"]},
            "checks": checks, "seconds": time.perf_counter() - t0}
     emit({"phase": "kv_seq_world", **out})
-    bad = [k for k, v in checks.items() if not v]
-    check(not bad, f"kv_seq world checks failed: {bad}")
     return out
+
+
+TP_ARCHS = (ARCH, "gemma2-9b")
+
+
+def tp_decode_collectives(cfg, rows: int) -> dict:
+    """The collectives one decode step issues on each rank under
+    ``serve_rules_for(cfg, "decode_32k")`` on a (1, 2) mesh, read off the
+    code (a dense decoder whose query heads split over "model", the KV
+    heads' weights whole): the embedding's vocab-block sum; per attention
+    layer the all-gather of q's heads, the three all-reduces of the
+    partials' merge (max, output, normaliser; f32) and the two sums of
+    the row-parallel projections (attention output, MLP down) into the
+    residual stream (in f32, ``layers.dense_to_stream``).  {kind: (count,
+    bytes)}, each call its largest buffer."""
+    layers, hq, dh, d = _attention_layers(cfg), cfg.num_heads, \
+        cfg.head_dim, cfg.d_model
+    embed = rows * d * 2                                # (rows, 1, d) bf16
+    merge = rows * hq * 4 * 2 + rows * hq * dh * 4
+    return {"all-gather": (layers, layers * rows * hq * dh * 2),
+            "all-reduce": (1 + 5 * layers,
+                           embed + layers * (merge + 2 * 2 * embed)),
+            "reduce-scatter": (0, 0)}
+
+
+def phase_tp_world(arch: str, recs: list[dict], smi: str) -> dict:
+    """Tensor-parallel serving of full-width ``arch`` on two ranks of this
+    card (``run_world``'s "tp" mode): the serving rules unmodified, so
+    heads, MLP and vocab split over "model" and the caches' "kv_seq" too.
+    The logits within 2e-2 of the largest of the unsharded run's; every
+    weight and cache leaf its shard; each rank's weight bytes the
+    replicated leaves' plus half of the rest; the partials kernel once a
+    layer a step on each rank; each decode step's collectives by kind
+    those ``tp_decode_collectives`` reads off the code; no call into
+    torch's functional collectives."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    modes = [r["modes"]["tp"] for r in recs]
+    r0 = modes[0]
+    want = _attention_layers(cfg) * KV_SEQ_STEPS
+    launches = [m["launches"]["partition_attention"] for m in modes]
+    predicted = {k: list(v) for k, v in
+                 tp_decode_collectives(cfg, KV_SEQ_ROWS).items()}
+    steps = [{k: [s["counts"][k], s["bytes"][k]] for k in predicted}
+             for m in modes for s in m["per_step"]]
+    wb = [m["weight_bytes"] for m in modes]
+    checks = {"finite": r0["finite"],
+              "logits_within_2e-2": r0["max_abs_err"]
+              <= 2e-2 * r0["max_abs_logit"],
+              "weights_split": all(m["weights_split"] > 0 for m in modes),
+              "weight_shards_ok": all(m["weight_shards_ok"] for m in modes),
+              "cache_shards_ok": all(m["shards_ok"] for m in modes),
+              "weight_bytes_half": all(
+                  b["rank"] == b["replicated"] + (b["model"] - b["replicated"])
+                  // KV_SEQ_WORLD for b in wb),
+              "partials_on_every_rank": launches == [want] * KV_SEQ_WORLD,
+              "collectives_per_step_as_predicted": len(steps)
+              == KV_SEQ_STEPS * KV_SEQ_WORLD
+              and all(s == predicted for s in steps),
+              "no_functional_collective": all(not m["functional"]
+                                              for m in modes)}
+    out = {"config": cfg.name, "world": KV_SEQ_WORLD, "backend": "gloo",
+           "rules": "serve_rules_for(cfg, 'decode_32k')",
+           "rows": KV_SEQ_ROWS, "cache": PARTITION_TOKENS,
+           "prompt": KV_SEQ_PROMPT, "steps": KV_SEQ_STEPS,
+           "max_abs_err": r0["max_abs_err"],
+           "max_abs_logit": r0["max_abs_logit"],
+           "step_errors": r0["step_errors"],
+           "launches_per_rank": launches, "expected_per_rank": want,
+           "decode_step_collectives": steps[0],
+           "predicted_per_step": predicted,
+           "prefill_and_gather_collectives": [
+               {k: [m["collectives"]["counts"][k]
+                    - sum(s["counts"][k] for s in m["per_step"]),
+                    m["collectives"]["bytes"][k]
+                    - sum(s["bytes"][k] for s in m["per_step"])]
+                for k in predicted} for m in modes],
+           "functional_calls": [m["functional"] for m in modes],
+           "weight_bytes": wb,
+           "rank_seconds": {
+               "unsharded": recs[0]["plain"],
+               "sharded": [{k: m[k] for k in ("prefill_seconds",
+                                              "steps_seconds")}
+                           for m in modes]},
+           "peak_bytes": {"unsharded": recs[0]["plain_peak_bytes"],
+                          "sharded": [m["peak_bytes"] for m in modes]},
+           "device": smi, "checks": checks,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "tp_world", **out})
+    return out
+
+
+def phase_worlds(kv_row: dict, smi: str) -> tuple[dict, dict]:
+    """The two-rank world: qwen2-7b through "kv_seq" and "tp", then
+    gemma2-9b through "tp", in one pair of processes; their phase
+    lines."""
+    recs = run_world(tuple((arch, ("kv_seq", "tp") if arch == ARCH
+                            else ("tp",)) for arch in TP_ARCHS))
+    kv = phase_kv_seq_world(kv_row, [r[ARCH] for r in recs])
+    tp = {arch: phase_tp_world(arch, [r[arch] for r in recs], smi)
+          for arch in TP_ARCHS}
+    bad = {name: [k for k, v in out["checks"].items() if not v]
+           for name, out in (("kv_seq", kv), *tp.items())}
+    check(not any(bad.values()), f"world checks failed: {bad}")
+    return kv, tp
 
 
 def phase_serve_elastic() -> dict:
@@ -3282,7 +3455,15 @@ def phase_analysis(profile: dict, train: dict) -> dict:
     return out
 
 
-def main() -> None:
+def _ok_line() -> None:
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def main(argv: list[str]) -> None:
+    if argv not in ([], ["worlds"]):
+        raise SystemExit("usage: python3 chip_smoke.py [worlds]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this check runs on an NVIDIA card only")
@@ -3290,6 +3471,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smi = phase_build()
+    if argv:                # the two-rank worlds alone
+        phase_worlds({}, smi)
+        emit({"phase": "done", "seconds": time.perf_counter() - t0})
+        print(smi, flush=True)
+        _ok_line()
+        return
     cfg = get_config(ARCH)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -3309,7 +3496,7 @@ def main() -> None:
     kv_row = timed("kv_seq_decode", phase_kv_seq_decode, kv_gen)
     rows.append(kv_row)
     torch.cuda.empty_cache()
-    summary_kv = timed("kv_seq_world", phase_kv_seq_world, kv_row)
+    summary_kv, summary_tp = timed("worlds", phase_worlds, kv_row, smi)
     launches, params, summary = timed("engine", phase_engine, cfg, gen)
     cluster_launches, summary["cluster"] = timed("cluster", phase_cluster,
                                                  cfg, params, gen)
@@ -3318,6 +3505,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     summary["kv_seq_world"] = summary_kv
+    summary["tp_world"] = summary_tp
     summary["serve_elastic"] = timed("serve_elastic", phase_serve_elastic)
     for arch in FAMILIES:
         more, summary[arch] = timed(arch, phase_family, arch, gen)
@@ -3356,10 +3544,8 @@ def main() -> None:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: row[k] for k in keys} for row in rows]})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    _ok_line()
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

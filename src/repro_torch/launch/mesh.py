@@ -32,7 +32,9 @@ def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
 
 def make_host_mesh(device_type="cuda"):
     """Degenerate 1 x n mesh over every rank of the world (tests,
-    examples): (1, 1) on one card."""
+    examples): (1, 1) on one card; (1, 2) for two gloo ranks sharing one
+    card, where ``sharding.redistribute`` moves the DTensors (torch's
+    functional all-gather dies under gloo on CUDA tensors)."""
     return _mesh((1, dist.get_world_size()), ("data", "model"), device_type)
 
 

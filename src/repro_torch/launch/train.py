@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.models import model as M
-from repro_torch.sharding import (distribute, is_dtensor, named_sharding,
+from repro_torch.sharding import (distribute, full_tensor, named_sharding,
                                   sharding_ctx, train_rules_for)
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import DataConfig, SyntheticTokens
@@ -69,7 +69,7 @@ def batch_to_mesh(batch: dict, mesh, rules) -> dict:
 
 def scalar(x) -> float:
     """A 0-d metric as a float (a DTensor's through its full value)."""
-    return float(x.full_tensor() if is_dtensor(x) else x)
+    return float(full_tensor(x))
 
 
 def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,

@@ -33,7 +33,8 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
-                                       dense_spec, f32, softcap)
+                                       dense_spec, dense_to_stream, f32,
+                                       softcap)
 from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
                                   is_dtensor, local_blocks, psum, shard,
                                   spec_for, split_last)
@@ -187,7 +188,7 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
             (q.reshape(b, hkv, g, dh), k[:, 0], v[:, 0], cache["k"],
              cache["v"], tok_pos), (qs, ns, ns, cs, cs, P(cs[0])), qs)
         out = shard(out.reshape(b, 1, hq * dh), "batch", "seq", None)
-        return dense(p["o"], out), cache
+        return dense_to_stream(p["o"], out, mode), cache
 
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv_heads", None)
@@ -205,7 +206,7 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
                              axes=entry_axes(cs[1])),
                      (k, v, cache["k"], cache["v"]), (ns, ns, cs, cs), cs)
     out = shard(out, "batch", "seq", "heads")
-    return dense(p["o"], out), cache
+    return dense_to_stream(p["o"], out, mode), cache
 
 
 # ---------------------------------------------------------------------------

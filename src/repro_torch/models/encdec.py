@@ -21,8 +21,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import (_scores, _weighted,
                                           make_attn_cache_spec)
 from repro_torch.models.layers import (apply_rope, bf16, dense, dense_spec,
-                                       mlp, mlp_spec, norm_spec, rmsnorm,
-                                       stack_specs)
+                                       dense_to_stream, mlp, mlp_spec,
+                                       norm_spec, rmsnorm, stack_specs)
 from repro_torch.models.transformer import _index, checkpointed, unstack
 from repro_torch.sharding import shard, split_last
 
@@ -78,7 +78,7 @@ def _unmasked(cfg, q, k, v):
             v, torch.softmax(_scores(qg, k, scale, 0.0), dim=-1)), q, k, v)
 
 
-def _bidir_attention(cfg, p, x, positions):
+def _bidir_attention(cfg, p, x, positions, mode):
     """Full bidirectional self-attention (encoder)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = apply_rope(split_last(dense(p["q"], x), hq, dh), positions,
@@ -86,23 +86,25 @@ def _bidir_attention(cfg, p, x, positions):
     k = apply_rope(split_last(dense(p["k"], x), hkv, dh), positions,
                    cfg.rope_theta)
     v = split_last(dense(p["v"], x), hkv, dh)
-    return dense(p["o"], _unmasked(cfg, q, k, v))
+    return dense_to_stream(p["o"], _unmasked(cfg, q, k, v), mode)
 
 
-def run_encoder(cfg, params, frames):
-    """frames (B, src, D) stub embeddings -> encoder output (B, src, D)."""
+def run_encoder(cfg, params, frames, mode: str = "train"):
+    """frames (B, src, D) stub embeddings -> encoder output (B, src, D);
+    ``mode`` as the decoder's (train or prefill)."""
     x = dense(params["src_proj"], frames.to(bf16))
     x = shard(x, "batch", "src", "embed")
     b, s = x.shape[:2]
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     for p in unstack(params["blocks"], cfg.encoder_layers):
         x = x + _bidir_attention(cfg, p["attn"],
-                                 rmsnorm(p["ln1"], x, cfg.norm_eps), pos)
-        x = x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+                                 rmsnorm(p["ln1"], x, cfg.norm_eps), pos,
+                                 mode)
+        x = x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), mode)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def _cross_attention(cfg, p, x, enc_out=None, cache=None):
+def _cross_attention(cfg, p, x, mode, enc_out=None, cache=None):
     """Decoder cross-attention.  At prefill/train ``enc_out`` is given and
     the cross K/V are computed from it (and written into ``cache`` in
     place when one is given); at decode the cache is read."""
@@ -121,7 +123,7 @@ def _cross_attention(cfg, p, x, enc_out=None, cache=None):
                 cache[name].copy_(new)
     else:
         k, v = cache["k"], cache["v"]
-    return dense(p["o"], _unmasked(cfg, q, k, v))
+    return dense_to_stream(p["o"], _unmasked(cfg, q, k, v), mode)
 
 
 def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
@@ -140,8 +142,9 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
                 cache=c["self"] if c is not None else None)
             h = h + hh
             h = h + _cross_attention(
-                cfg, p["cross"], rmsnorm(p["ln2"], h, cfg.norm_eps),
+                cfg, p["cross"], rmsnorm(p["ln2"], h, cfg.norm_eps), mode,
                 enc_out=enc_out, cache=c["cross"] if c is not None else None)
-            return h + mlp(cfg, p["ffn"], rmsnorm(p["ln3"], h, cfg.norm_eps))
+            return h + mlp(cfg, p["ffn"], rmsnorm(p["ln3"], h, cfg.norm_eps),
+                           mode)
         x = checkpointed(block, x) if remat else block(x)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.sharding import (P, block_start, current_ctx, distribute,
                                   entry_axes, gather_weight, is_dtensor,
                                   local_blocks, named_sharding, psum, shard,
-                                  spec_for)
+                                  spec_for, sum_partials)
 
 bf16 = torch.bfloat16
 f32 = torch.float32
@@ -224,8 +224,28 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
         x, w = x.to(t), w.to(t)
     y = x @ w
     if "b" in p:
-        y = y + p["b"]
+        # a contraction over a split dim leaves partial sums: sum them
+        # before the bias is added once
+        y = sum_partials(y) + p["b"]
     return y
+
+
+def dense_to_stream(p, x: torch.Tensor, mode: str) -> torch.Tensor:
+    """``dense(p, x)`` for a projection into the residual stream (attention
+    output, MLP down, recurrent and SSM out).  On a mesh its input dim may
+    be split over ranks, each rank's product then a partial sum.  Serving
+    (prefill, decode) forms those products in f32, sums them
+    (``sum_partials``, an all-reduce) and rounds once to x's dtype, as the
+    unsharded product accumulates in f32 and rounds once; no later op of
+    the stream then needs DTensor to move it.  Training leaves the partial
+    sums to DTensor's plan, which keeps the stream a partial sum until a
+    norm needs it whole: summing here rounds bf16 otherwise and moves
+    reduced mixtral's router gradient past its bound in
+    ``tests/test_torch_mesh.py`` (a top-k choice near a tie)."""
+    if mode == "train" or not (is_dtensor(p["w"]) and any(
+            pl.is_shard(0) for pl in p["w"].placements)):
+        return dense(p, x)
+    return sum_partials(dense(p, x.to(f32))).to(x.dtype)
 
 
 def norm_spec(d: int, axes=(None,)):
@@ -234,7 +254,9 @@ def norm_spec(d: int, axes=(None,)):
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(f32)
-    var = xf.square().mean(dim=-1, keepdim=True)
+    # over a split last dim (mamba2's gated norm) the ranks' partial means
+    # are summed here
+    var = sum_partials(xf.square().mean(dim=-1, keepdim=True))
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
@@ -251,10 +273,10 @@ def mlp_spec(cfg):
     }
 
 
-def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg, p, x: torch.Tensor, mode: str = "train") -> torch.Tensor:
     h = act_fn(cfg.act, dense(p["gate"], x)) * dense(p["up"], x)
     h = shard(h, "batch", "seq", "mlp")
-    return dense(p["down"], h)
+    return dense_to_stream(p["down"], h, mode)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -216,7 +216,7 @@ def _backbone(cfg: ModelConfig, params, x, batch=None, **kw):
     if cfg.family != "audio":
         return transformer.run_decoder(cfg, params["decoder"], x, **kw)
     enc_out = None if batch is None else encdec.run_encoder(
-        cfg, params["encoder"], batch["frames"])
+        cfg, params["encoder"], batch["frames"], kw["mode"])
     return encdec.run_decoder(cfg, params["decoder"], x, enc_out=enc_out,
                               **kw)
 

@@ -17,9 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamSpec, act_fn, bf16, dense,
-                                       dense_spec, f32)
+                                       dense_spec, dense_to_stream, f32)
 from repro_torch.models.ssm import causal_conv
-from repro_torch.sharding import is_dtensor, shard, split_last
+from repro_torch.sharding import is_dtensor, redistribute, shard, split_last
 
 LRU_C = 8.0
 
@@ -67,9 +67,7 @@ def _gates(p, x, nb):
         # gradient before it unflattens it (see ``split_last``)
         from torch.distributed.tensor import Replicate
         to = [pl if pl.is_shard() else Replicate() for pl in x.placements]
-        if list(r.placements) != to:
-            r = r.redistribute(x.device_mesh, to)
-            i = i.redistribute(x.device_mesh, to)
+        r, i = redistribute(r, to), redistribute(i, to)
     return r, i
 
 
@@ -120,7 +118,7 @@ def rglru_block(cfg, p, u, *, mode: str, cache=None):
         cache["conv"].copy_(full[:, 1:])
 
     y = h.to(u.dtype) * gate
-    return dense(p["out"], y), cache
+    return dense_to_stream(p["out"], y, mode), cache
 
 
 def make_rglru_cache_spec(cfg, batch: int):

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import (ParamSpec, bf16, dense, dense_spec,
-                                       f32, norm_spec, rmsnorm)
+                                       dense_to_stream, f32, norm_spec,
+                                       rmsnorm)
 from repro_torch.sharding import P, current_ctx, local_blocks, shard, spec_for
 
 
@@ -183,8 +184,9 @@ def ssm_block(cfg, p, u, *, mode: str, cache=None):
         Cc, hC = _conv_step(p["conv_C"], cache["conv_C"], Cr[:, 0])
         dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"])     # (B,H)
         xh = xc.reshape(b, h, hd)
-        Bh = _broadcast_groups(Bc.reshape(b, g, ds), h).to(f32)
-        Ch = _broadcast_groups(Cc.reshape(b, g, ds), h).to(f32)
+        # each rank's heads of the group-broadcast B and C, as the state's
+        Bh, Ch = (shard(_broadcast_groups(t.reshape(b, g, ds), h).to(f32),
+                        "batch", "ssm_heads", None) for t in (Bc, Cc))
         hs = cache["state"].to(f32)                             # (B,H,P,N)
         hs = hs * torch.exp(dt * A)[:, :, None, None] \
             + torch.einsum("bh,bhn,bhp->bhpn", dt, Bh, xh.to(f32))
@@ -198,7 +200,7 @@ def ssm_block(cfg, p, u, *, mode: str, cache=None):
 
     y = y.reshape(b, s, cfg.d_inner)
     y = rmsnorm(p["norm"], y.to(u.dtype) * F.silu(z), cfg.norm_eps)
-    return dense(p["out"], y), cache
+    return dense_to_stream(p["out"], y, mode), cache
 
 
 def make_ssm_cache_spec(cfg, batch: int):

@@ -133,7 +133,8 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
                                      rmsnorm(p["ln1"], x, cfg.norm_eps),
                                      mode=mode, cache=cache)
         x = x + h
-        return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                       mode)
     h, _ = attn_mod.attention(cfg, p["attn"],
                               rmsnorm(p["ln1"], x, cfg.norm_eps),
                               positions=positions, mode=mode, cache=cache,
@@ -143,7 +144,7 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     h2 = moe_mod.moe_block(cfg, p["ffn"], h2) if cfg.num_experts \
-        else mlp(cfg, p["ffn"], h2)
+        else mlp(cfg, p["ffn"], h2, mode)
     if cfg.post_norms:
         h2 = rmsnorm(p["pn2"], h2, cfg.norm_eps)
     return x + h2

@@ -299,15 +299,166 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+# ---------------------------------------------------------------------------
+# Redistribution: c10d's in-place collectives on the local blocks
+# ---------------------------------------------------------------------------
+
+_REDUCE_OPS = {"sum": "SUM", "avg": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def _placement_kind(pl) -> str:
+    """"shard", "replicate" or "partial"; a placement this module does not
+    move (a strided shard, a norm's partial) raises."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    kind = {Shard: "shard", Replicate: "replicate", Partial: "partial"}.get(
+        type(pl))
+    if kind is None or (kind == "partial"
+                        and pl.reduce_op not in _REDUCE_OPS):
+        raise NotImplementedError(f"redistribute cannot move {pl!r}")
+    return kind
+
+
+def _gather(t: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
+    import torch.distributed as dist
+    t = t.movedim(d, 0).contiguous()
+    out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=group)
+    return out.movedim(0, d).contiguous()
+
+
+def _reduce(t: torch.Tensor, op: str, group, n: int) -> torch.Tensor:
+    import torch.distributed as dist
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]),
+                    group=group)
+    return t / n if op == "avg" else t
+
+
+def _reduce_scatter(t: torch.Tensor, op: str, d: int, group,
+                    n: int) -> torch.Tensor:
+    import torch.distributed as dist
+    t = t.movedim(d, 0).contiguous()
+    out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+    dist.reduce_scatter_tensor(out, t, op=getattr(
+        dist.ReduceOp, _REDUCE_OPS[op]), group=group)
+    out = out.movedim(0, d).contiguous()
+    return out / n if op == "avg" else out
+
+
+def _moved(x, to: tuple):
+    """The DTensor ``x`` on placements ``to``: each mesh dim's transition
+    done on the local block with c10d's in-place collectives over that
+    dim's group.  A tensor dim whose split changes on any mesh dim is
+    gathered on every mesh dim that splits it (minor first) and cut again
+    (major first), so a dim split over several mesh dims keeps DTensor's
+    major-to-minor block order.  A mesh dim of one rank moves nothing."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, src = x.device_mesh, tuple(x.placements)
+    kind = _placement_kind
+    changed = {pl.dim for a, b in zip(src, to) if a != b for pl in (a, b)
+               if kind(pl) == "shard"}
+    for pls in (src, to):
+        for d in changed:
+            n = math.prod(mesh.size(i) for i, pl in enumerate(pls)
+                          if kind(pl) == "shard" and pl.dim == d)
+            if x.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                 f"split evenly over {pls}")
+    t, cur = x.to_local(), list(src)
+    for i in reversed(range(mesh.ndim)):    # gathers and all-reduces
+        n, a = mesh.size(i), src[i]
+        if kind(a) == "shard" and a.dim in changed:
+            if n > 1:
+                t = _gather(t, a.dim, mesh.get_group(i), n)
+            cur[i] = Replicate()
+        elif kind(a) == "partial" and kind(to[i]) == "replicate":
+            if n > 1:
+                t = _reduce(t, a.reduce_op, mesh.get_group(i), n)
+            cur[i] = Replicate()
+    for i in range(mesh.ndim):              # cuts and reduce-scatters
+        n, a, b = mesh.size(i), cur[i], to[i]
+        if a == b:
+            continue
+        if kind(b) != "shard":
+            raise NotImplementedError(f"redistribute: {a!r} -> {b!r}")
+        if n > 1 and kind(a) == "partial":
+            t = _reduce_scatter(t, a.reduce_op, b.dim, mesh.get_group(i),
+                                n)
+        elif n > 1:
+            size = t.shape[b.dim] // n
+            t = t.narrow(b.dim, mesh.get_local_rank(i) * size,
+                         size).contiguous()
+    return DTensor.from_local(t, mesh, to, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+class _Redistribute(torch.autograd.Function):
+    """``_moved`` with DTensor's backward for the same transition: the
+    gradient goes back onto the input's placements, but where the input
+    was partial, a replicated or sharded gradient is left (or gathered)
+    replicated, as ``DTensor.redistribute``'s backward does, and a
+    partial one is left as it is (a mean's partial input takes a partial
+    sum's gradient, which DTensor cannot turn into a partial mean; each
+    holds the same value)."""
+
+    @staticmethod
+    def forward(ctx, x, to):
+        ctx.src = tuple(x.placements)
+        return _moved(x, to)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        to = tuple(src if not src.is_partial() else cur if cur.is_partial()
+                   else Replicate() for cur, src in zip(g.placements, ctx.src))
+        return (g if tuple(g.placements) == to else _moved(g, to)), None
+
+
+def redistribute(x: torch.Tensor, to) -> torch.Tensor:
+    """The DTensor ``x`` on placements ``to`` (one per mesh dim: the
+    transitions are Shard(d) -> Replicate, an all-gather on d; Partial ->
+    Replicate, an all-reduce; Partial -> Shard(d), a reduce-scatter on d;
+    Replicate -> Shard(d), this rank's slice; Shard(d) -> Shard(e), a
+    gather and a slice), through c10d's in-place collectives over
+    ``mesh.get_group(dim)``: the same path on every backend and device,
+    never torch's functional collectives, which DTensor's own
+    ``redistribute`` takes.  Differentiable."""
+    to = tuple(to)
+    if tuple(x.placements) == to:
+        return x
+    return _Redistribute.apply(x, to)
+
+
+def full_tensor(x: torch.Tensor) -> torch.Tensor:
+    """The whole of the DTensor ``x`` on every rank, as a plain tensor
+    (``DTensor.full_tensor`` through ``redistribute``); a plain tensor as
+    it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def sum_partials(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums summed: replicated over each mesh dim
+    on which the DTensor ``x`` is partial (an all-reduce); a plain tensor
+    as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, [Replicate() if pl.is_partial() else pl
+                            for pl in x.placements])
+
+
 def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """Redistribute ``x`` by logical axis names: a no-op without a context
-    or on a plain tensor, ``x.redistribute(mesh, placements)`` on a
-    DTensor under one."""
+    or on a plain tensor, ``redistribute(x, placements)`` on a DTensor
+    under one."""
     ctx = current_ctx()
     if ctx is None or not is_dtensor(x):
         return x
     spec = spec_for(axes, tuple(x.shape), ctx)
-    return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+    return redistribute(x, placements(spec, ctx.mesh))
 
 
 def split_last(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
@@ -321,9 +472,8 @@ def split_last(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
                           if pl.is_shard(last))
         if n % ranks:
             from torch.distributed.tensor import Replicate
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if pl.is_shard(last) else pl
-                for pl in x.placements])
+            x = redistribute(x, [Replicate() if pl.is_shard(last) else pl
+                                 for pl in x.placements])
     return x.reshape(x.shape[:-1] + (n, d))
 
 
@@ -351,9 +501,8 @@ def gather_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                if i in rows):
         return w
     from torch.distributed.tensor import Replicate
-    return w.redistribute(w.device_mesh, [
-        Replicate() if i in rows and pl.is_shard() else pl
-        for i, pl in enumerate(w.placements)])
+    return redistribute(w, [Replicate() if i in rows and pl.is_shard()
+                            else pl for i, pl in enumerate(w.placements)])
 
 
 def local_blocks(fn, args, in_specs, out_specs):
@@ -361,10 +510,11 @@ def local_blocks(fn, args, in_specs, out_specs):
     ``shard_map`` for code that needs no communication under these specs
     (attention over its rows and heads, a scan over its rows and SSM
     heads).  Under a context and with a DTensor among ``args``, each
-    argument is redistributed onto its spec in ``in_specs`` (a plain
-    tensor counts as replicated and is cut to the rank's block), ``fn``
-    runs on the local tensors, and its output (one tensor, or a tuple
-    with ``out_specs`` a tuple) is put together by ``out_specs``.  An
+    argument is redistributed onto its spec in ``in_specs`` by
+    ``redistribute`` (a plain tensor counts as replicated and is cut to
+    the rank's block), ``fn`` runs on the local tensors, and its output
+    (one tensor, or a tuple with ``out_specs`` a tuple) is put together
+    by ``out_specs``.  An
     input replicated over a mesh axis along which the work is split (some
     input is sharded on it: rows over "data", say, for a weight that every
     rank applies to its own rows) gets its gradient summed over that axis;
@@ -376,9 +526,11 @@ def local_blocks(fn, args, in_specs, out_specs):
     from torch.distributed.tensor.experimental import local_map
 
     mesh = ctx.mesh
-    args = tuple(a if is_dtensor(a) else DTensor.from_local(
-        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args)
     ins = tuple(placements(s, mesh) for s in in_specs)
+    # onto ``in_specs`` here, so that ``local_map`` has nothing to move
+    args = tuple(redistribute(a if is_dtensor(a) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False), pl)
+        for a, pl in zip(args, ins))
     split = {i for pl in ins for i, q in enumerate(pl)
              if not isinstance(q, Replicate)}
     grads = tuple(tuple(Partial() if i in split and isinstance(q, Replicate)
@@ -389,7 +541,7 @@ def local_blocks(fn, args, in_specs, out_specs):
             out_specs, PartitionSpec) else list(placements(out_specs, mesh))
     return local_map(fn, out_placements=out, in_placements=ins,
                      in_grad_placements=grads, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+                     redistribute_inputs=False)(*args)
 
 
 class _Psum(torch.autograd.Function):
@@ -418,6 +570,77 @@ def psum(y: torch.Tensor, axis: str) -> torch.Tensor:
     if ctx.shape[axis] == 1:
         return y
     return _Psum.apply(y, ctx.mesh.get_group(axis))
+
+
+# the in-place collectives of ``torch.distributed`` that this module and
+# the models call -> the collective's name; ``CollectiveCount`` counts them
+_C10D_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                     "all_reduce": "all-reduce",
+                     "reduce_scatter_tensor": "reduce-scatter"}
+
+
+class CollectiveCount:
+    """Every collective issued while the object is entered, by path:
+    ``functional`` counts the calls into each public function of
+    ``torch.distributed._functional_collectives`` (the path DTensor's own
+    redistribution takes), ``counts`` and ``bytes`` the calls of
+    ``torch.distributed``'s in-place collectives by kind, each call its
+    largest buffer (an all-gather's result, a reduce-scatter's operand).
+    It wraps those module attributes while entered, so it costs nothing
+    per op; ``snapshot()`` reads the totals so far."""
+
+    def __init__(self):
+        self.functional: dict[str, int] = {}
+        self.counts = {k: 0 for k in _C10D_COLLECTIVES.values()}
+        self.bytes = dict(self.counts)
+        self._saved: list = []
+
+    def snapshot(self) -> dict:
+        return {"functional": dict(self.functional),
+                "counts": dict(self.counts), "bytes": dict(self.bytes)}
+
+    def _wrap(self, module, name, count):
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kw):
+            count(args, kw)
+            return fn(*args, **kw)
+        self._saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+
+    def __enter__(self):
+        import inspect
+
+        import torch.distributed as dist
+        from torch.distributed import _functional_collectives as funcol
+
+        def functional(name):
+            def count(args, kw):
+                self.functional[name] = self.functional.get(name, 0) + 1
+            return count
+
+        def c10d(name):
+            kind = _C10D_COLLECTIVES[name]
+
+            def count(args, kw):
+                t = args[0] if name != "reduce_scatter_tensor" else (
+                    args[1] if len(args) > 1 else kw["input"])
+                self.counts[kind] += 1
+                self.bytes[kind] += t.numel() * t.element_size()
+            return count
+        for name, fn in vars(funcol).items():
+            if inspect.isfunction(fn) and not name.startswith("_") \
+                    and fn.__module__ == funcol.__name__:
+                self._wrap(funcol, name, functional(name))
+        for name in _C10D_COLLECTIVES:
+            self._wrap(dist, name, c10d(name))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in reversed(self._saved):
+            setattr(module, name, fn)
+        self._saved.clear()
+        return False
 
 
 def named_sharding(axes: tuple[Optional[str], ...], shape: tuple[int, ...],

@@ -14,12 +14,13 @@ torch's ``int16`` view, the JAX package reads them back with ``ml_dtypes``.
 
 ``save`` copies every leaf to host memory on the calling thread before the
 writer starts, so an async save is not raced by the next step's in-place
-update.  A DTensor leaf is gathered whole (``full_tensor``, a collective:
-every rank calls ``save``), and the rank numbered ``process_index`` writes
-the file.  Restore is mesh-agnostic: leaves are loaded on the host and
-distributed onto the *target* ``placements`` (a tree of
-``sharding.NamedSharding`` like the state, ``None`` for a plain leaf), so a
-checkpoint taken on mesh A restores onto mesh B, or onto no mesh.
+update.  A DTensor leaf is gathered whole (``sharding.full_tensor``, a
+collective: every rank calls ``save``), and the rank numbered
+``process_index`` writes the file.  Restore is mesh-agnostic: leaves are
+loaded on the host and distributed onto the *target* ``placements`` (a
+tree of ``sharding.NamedSharding`` like the state, ``None`` for a plain
+leaf), so a checkpoint taken on mesh A restores onto mesh B, or onto no
+mesh.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding import distribute, is_dtensor
+from repro_torch.sharding import distribute, full_tensor
 
 
 def _flatten(tree, prefix=""):
@@ -62,8 +63,7 @@ def _unflatten_into(template, flat: dict[str, torch.Tensor], prefix=""):
 def _encode(x) -> tuple[str, np.ndarray]:
     """A leaf (tensor, DTensor or numpy array) -> (key suffix, a host copy
     npz can store): bf16 as its uint16 bits with the ``::bf16`` marker."""
-    if is_dtensor(x):
-        x = x.full_tensor()
+    x = full_tensor(x)
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
