@@ -1008,6 +1008,22 @@ def _vanilla_migration(eng, gen) -> dict:
             "unplug_wall_ms": evs[0].wall_seconds * 1e3}
 
 
+def _restores(eng, rid: str) -> tuple[int, int]:
+    """Run invocation ``rid`` on ``eng``; its restores' remaps and
+    host->device bytes, from their ``restore`` events."""
+    n = len(eng.events)
+    _run_one(eng, rid)
+    evs = [e for e in eng.events[n:] if e.kind == "restore"]
+    return (sum(e.detail["remap"] for e in evs),
+            sum(e.detail["h2d_bytes"] for e in evs))
+
+
+def _snapshot_events(engines) -> tuple[int, int]:
+    """Snapshot captures and restores the engines' events record."""
+    kinds = [e.kind for eng in engines for e in eng.events]
+    return kinds.count("snapshot"), kinds.count("restore")
+
+
 def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     params = M.init_params(cfg, 0, device=DEV)
@@ -1070,7 +1086,6 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
     burst._sync_rows = measured_sync_rows
 
     ops.reset_launches()
-    kv_snapshot.reset_stats()
     t_run = time.perf_counter()
     # (a) cold -> warm -> expiry capture -> restore -> restore
     _run_one(snap, "c0")
@@ -1085,14 +1100,8 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
     # fresh replica pays one host->device copy
     _run_one(cow_a, "c0")
     _expire(cow_a)
-    stats_before = dict(kv_snapshot.STATS)
-    _run_one(cow_a, "r0")
-    remap_h2d = kv_snapshot.STATS["h2d_bytes"] - stats_before["h2d_bytes"]
-    remaps = kv_snapshot.STATS["remap_restores"] \
-        - stats_before["remap_restores"]
-    h2d_before = kv_snapshot.STATS["h2d_transfers"]
-    _run_one(cow_b, "r1")
-    fresh_h2d = kv_snapshot.STATS["h2d_transfers"] - h2d_before
+    remaps, remap_h2d = _restores(cow_a, "r0")
+    fresh_remaps, fresh_h2d = _restores(cow_b, "r1")
     # (c) a bursty trace that plugs up the ladder and unplugs back down
     reqs = _bursty()
     m_burst = burst.run(reqs, max_virtual_s=2000)
@@ -1105,7 +1114,7 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = dict(ops.LAUNCHES)
-    stats = dict(kv_snapshot.STATS)
+    captures, restores = _snapshot_events(engines)
 
     decode_steps = sum(e.metrics()["decode_steps"] for e in engines)
     row_bytes = kv_snapshot.expected_row_bytes(cfg, PARTITION_TOKENS)
@@ -1147,15 +1156,15 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
             and snap_ev[0].detail["bytes"] == row_bytes,
         "partition_attention launches == decode steps x layers":
             launches["partition_attention"] == decode_steps * cfg.num_layers,
-        "capture launches == STATS": launches["snapshot_capture"]
-        == stats["capture_launches"] > 0,
-        "restore launches == STATS": launches["snapshot_restore"]
-        == stats["restore_launches"] > 0,
+        "capture launches == snapshot events": launches["snapshot_capture"]
+        == captures > 0,
+        "restore launches == restore events": launches["snapshot_restore"]
+        == restores > 0,
         "zero-h2d remap restore": remaps == 1 and remap_h2d == 0
         and cow_ev[-1].detail["pages_shared"]
         == cow_ev[-1].detail["pages_total"],
         "fresh replica pays one h2d": cow_b.restore_starts == 1
-        and fresh_h2d == 1,
+        and fresh_remaps == 0 and fresh_h2d == row_bytes,
         "unplug frees device memory": bool(drops) and all(
             d["freed_bytes"] >= (d["rows"] - d["parts"])
             * spec.bytes_per_partition for d in drops),
@@ -1276,6 +1285,7 @@ class ClusterProbe:
         self.spec, self.gen = spec, gen
         self.steals: list[dict] = []
         self.captured: dict[int, str] = {}
+        self.captures = 0
         self.restores: list[dict] = []
 
     def watch(self, eng) -> None:
@@ -1303,6 +1313,7 @@ class ClusterProbe:
         def checked_offer(prof_name, rid, row):
             ok = offer(prof_name, rid, row)
             if ok:
+                self.captures += 1
                 snap = eng.broker.snapshots.peek(prof_name)
                 digest = _digest(
                     snap.payload.blob if snap.pages is None else
@@ -1531,7 +1542,6 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launches()
-    kv_snapshot.reset_stats()
     t0 = time.perf_counter()
     scripted = {mode: _scripted_steal(cfg, params, spec, mode, probe)
                 for mode in ("hotmem", "vanilla")}
@@ -1543,7 +1553,6 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
     torch.cuda.synchronize(DEV)
     seconds = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    stats = dict(kv_snapshot.STATS)
 
     every = list(scripted.values()) + runs + [fleet]
     # each engine's one warm-up decode step (made in this phase) and the
@@ -1587,10 +1596,9 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
             probe.restores) and all(r["equal"] for r in probe.restores),
         "partition_attention launches == decode steps x layers":
             launches["partition_attention"] == decode_steps * cfg.num_layers,
-        "capture and restore launches == STATS":
-            launches["snapshot_capture"] == stats["capture_launches"] > 0
-            and launches["snapshot_restore"] == stats["restore_launches"]
-            > 0,
+        "capture and restore launches == captures and restores":
+            launches["snapshot_capture"] == probe.captures > 0
+            and launches["snapshot_restore"] == len(probe.restores) > 0,
     }
     walls = {"scripted": {m: r["steal_walls_ms"]
                           for m, r in scripted.items()},
@@ -1870,7 +1878,6 @@ def _family_engines(cfg, params, gen) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launches()
-    kv_snapshot.reset_stats()
     t0 = time.perf_counter()
     snap_broker = HostMemoryBroker(budget_units=12 * bpp,
                                    snapshot_pool_units=4 * bpp)
@@ -1898,20 +1905,13 @@ def _family_engines(cfg, params, gen) -> tuple[dict, dict]:
     m_snap = snap.metrics()
     _run_one(cow_a, "c0")
     _expire(cow_a)
-    stats_before = dict(kv_snapshot.STATS)
-    _run_one(cow_a, "r0")
-    remap_h2d = kv_snapshot.STATS["h2d_bytes"] - stats_before["h2d_bytes"]
-    remaps = kv_snapshot.STATS["remap_restores"] \
-        - stats_before["remap_restores"]
-    h2d_before = kv_snapshot.STATS["h2d_transfers"]
-    _run_one(cow_b, "r1")
-    fresh_h2d = kv_snapshot.STATS["h2d_transfers"] - h2d_before
+    remaps, remap_h2d = _restores(cow_a, "r0")
+    fresh_remaps, fresh_h2d = _restores(cow_b, "r1")
     reqs = _bursty()
     m_burst = burst.run(reqs, max_virtual_s=2000)
     torch.cuda.synchronize(DEV)
     run_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    stats = dict(kv_snapshot.STATS)
 
     n_leaves = len(M.cache_flat_axes(burst.caches)[0])
     metrics = [e.metrics() for e in engines]
@@ -1952,16 +1952,14 @@ def _family_engines(cfg, params, gen) -> tuple[dict, dict]:
         and cow_ev[-1].detail["pages_shared"]
         == cow_ev[-1].detail["pages_total"] == pages,
         "fresh replica pays one h2d": cow_b.restore_starts == 1
-        and fresh_h2d == 1,
+        and fresh_remaps == 0 and fresh_h2d == row_bytes,
         "partition_attention launches == (decode steps + warm-ups) x "
         "attention layers": launches["partition_attention"]
         == (decode_steps + len(engines)) * attn_layers,
-        "capture launches == captures == STATS":
-            launches["snapshot_capture"] == captures
-            == stats["capture_launches"] > 0,
-        "restore launches == restores == STATS":
-            launches["snapshot_restore"] == restores
-            == stats["restore_launches"] > 0,
+        "capture launches == captures":
+            launches["snapshot_capture"] == captures > 0,
+        "restore launches == restores":
+            launches["snapshot_restore"] == restores > 0,
         "no kv_compact or paged_attention launch":
             launches["kv_compact"] == launches["paged_attention"] == 0,
     }

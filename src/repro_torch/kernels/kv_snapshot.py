@@ -1,9 +1,9 @@
 """Fused snapshot capture (gather) and restore (scatter) of arena rows.
 
 Port of ``repro.kernels.kv_snapshot``.  The row layout (``LeafSlot``,
-``RowLayout``, ``build_layout``), the analytic byte models and the
-data-plane counters (``STATS``) are the JAX package's; the two Pallas
-kernels become one CUDA source, ``csrc/kv_snapshot.cu``, launched here:
+``RowLayout``, ``build_layout``) and the analytic byte models are the JAX
+package's; the two Pallas kernels become one CUDA source,
+``csrc/kv_snapshot.cu``, launched here:
 
   capture — every leaf's ``rows[i]`` slice into row ``i`` of one
             contiguous ``(N, row_elems)`` blob, one launch for all leaves
@@ -15,6 +15,12 @@ kernels become one CUDA source, ``csrc/kv_snapshot.cu``, launched here:
 
 ``ops.snapshot_capture`` / ``ops.snapshot_restore`` pick the kernel for
 CUDA tensors and ``ref`` for CPU tensors.
+
+The JAX package's data-plane counters are not kept: the engine's
+``snapshot`` and ``restore`` StepEvents carry each transfer's bytes
+(``bytes``; a restore's ``h2d_bytes`` and ``remap``), the same facts ride
+the ``snapshot.capture`` and ``start.restore`` spans, and ``ops.LAUNCHES``
+counts the kernels' launches on the card.
 """
 from __future__ import annotations
 
@@ -211,41 +217,3 @@ def restore_cost(row_bytes: int, n_rows: int,
     h2d = float(n_rows * row_bytes) * new_fraction
     return {"hbm_bytes": hbm, "host_bytes": h2d,
             "memory_s": hbm / roofline.HBM_BW}
-
-
-# ---------------------------------------------------------------------------
-# Data-plane accounting (dispatch / transfer counters the tests assert on)
-# ---------------------------------------------------------------------------
-
-STATS = {
-    "capture_launches": 0,       # fused capture executions
-    "restore_launches": 0,       # fused restore executions
-    "d2h_transfers": 0,          # device->host copies (capture readout)
-    "d2h_bytes": 0,
-    "h2d_transfers": 0,          # host->device copies (restore staging)
-    "h2d_bytes": 0,
-    "remap_restores": 0,         # fully-mapped CoW restores (zero h2d)
-}
-
-
-def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
-
-
-def note_launch(kind: str) -> None:
-    STATS[f"{kind}_launches"] += 1
-
-
-def note_d2h(nbytes: int) -> None:
-    STATS["d2h_transfers"] += 1
-    STATS["d2h_bytes"] += int(nbytes)
-
-
-def note_h2d(nbytes: int) -> None:
-    STATS["h2d_transfers"] += 1
-    STATS["h2d_bytes"] += int(nbytes)
-
-
-def note_remap() -> None:
-    STATS["remap_restores"] += 1

@@ -38,6 +38,7 @@ from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
 from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
                                   is_dtensor, local_blocks, psum, shard,
                                   spec_for, split_last)
+from repro_torch.spans import span
 from repro_torch.tracemode import is_analysis
 
 # chunked online-softmax attention at/above this length; the chunk sizes are
@@ -151,7 +152,9 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
               window: int = 0):
     """Returns (y, cache).  ``positions``: (B,S) [or (3,B,S) M-RoPE] int32
     for train/prefill; (B,) [or (3,B)] global positions for decode.
-    ``cache`` is updated in place."""
+    ``cache`` is updated in place.  Spans (``repro_torch.spans``):
+    ``attn.qkv`` (projections and RoPE), ``attn.core`` (the attention and
+    the cache write), ``attn.out`` (the output projection)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     scale = cfg.query_scale or dh ** -0.5
@@ -160,11 +163,12 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
 
     rope_pos = positions if mode != "decode" else (
         positions[..., None])  # (B,1) / (3,B,1)
-    q = split_last(dense(p["q"], x), hq, dh)
-    k = split_last(dense(p["k"], x), hkv, dh)
-    v = split_last(dense(p["v"], x), hkv, dh)
-    q = apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
+    with span("attn.qkv"):
+        q = split_last(dense(p["q"], x), hq, dh)
+        k = split_last(dense(p["k"], x), hkv, dh)
+        v = split_last(dense(p["v"], x), hkv, dh)
+        q = apply_rope(q, rope_pos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.mrope_sections)
     # the mask, the cache slot and the kernel read the token index, which
     # is M-RoPE's first (temporal) section
     tok_pos = positions[0] if cfg.mrope_sections else positions
@@ -182,13 +186,15 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
         v = shard(v, "batch", None, None, None)
         t = cache["k"].shape[1]
         qs, ns = P(cs[0], cs[2], None, None), P(cs[0], cs[2], None)
-        out = local_blocks(
-            partial(_decode_block, t=t, axes=entry_axes(cs[1]),
-                    window=window, scale=scale, cap=cap),
-            (q.reshape(b, hkv, g, dh), k[:, 0], v[:, 0], cache["k"],
-             cache["v"], tok_pos), (qs, ns, ns, cs, cs, P(cs[0])), qs)
-        out = shard(out.reshape(b, 1, hq * dh), "batch", "seq", None)
-        return dense_to_stream(p["o"], out, mode), cache
+        with span("attn.core"):
+            out = local_blocks(
+                partial(_decode_block, t=t, axes=entry_axes(cs[1]),
+                        window=window, scale=scale, cap=cap),
+                (q.reshape(b, hkv, g, dh), k[:, 0], v[:, 0], cache["k"],
+                 cache["v"], tok_pos), (qs, ns, ns, cs, cs, P(cs[0])), qs)
+        with span("attn.out"):
+            out = shard(out.reshape(b, 1, hq * dh), "batch", "seq", None)
+            return dense_to_stream(p["o"], out, mode), cache
 
     q = shard(q, "batch", "seq", "heads", None)
     k = shard(k, "batch", "seq", "kv_heads", None)
@@ -197,16 +203,20 @@ def attention(cfg, p, x, *, positions, mode: str, cache=None,
     # chunked path's) without its loops
     fn = _chunked_attention if s >= FLASH_SEQ and not is_analysis() \
         else _plain_attention
-    out = grouped_attention(
-        lambda qg, k, v, pos: fn(qg, k, v, pos, pos, window, scale, cap),
-        q, k, v, tok_pos)
-    if mode == "prefill":
-        ns = P(cs[0], None, cs[2], None)
-        local_blocks(partial(_prefill_block, t=cache["k"].shape[1],
-                             axes=entry_axes(cs[1])),
-                     (k, v, cache["k"], cache["v"]), (ns, ns, cs, cs), cs)
-    out = shard(out, "batch", "seq", "heads")
-    return dense_to_stream(p["o"], out, mode), cache
+    with span("attn.core"):
+        out = grouped_attention(
+            lambda qg, k, v, pos: fn(qg, k, v, pos, pos, window, scale,
+                                     cap),
+            q, k, v, tok_pos)
+        if mode == "prefill":
+            ns = P(cs[0], None, cs[2], None)
+            local_blocks(partial(_prefill_block, t=cache["k"].shape[1],
+                                 axes=entry_axes(cs[1])),
+                         (k, v, cache["k"], cache["v"]), (ns, ns, cs, cs),
+                         cs)
+    with span("attn.out"):
+        out = shard(out, "batch", "seq", "heads")
+        return dense_to_stream(p["o"], out, mode), cache
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (materialize, sharding_tree,
                                        tree_flatten, tree_map)
+from repro_torch.spans import span
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +250,13 @@ def prefill(cfg: ModelConfig, params, batch: dict, caches):
     pos = batch.get("positions")
     if pos is None:
         pos = _train_positions(cfg, b, s, tokens.device)
-    x = transformer.embed_tokens(cfg, params["embed"], tokens,
-                                 batch.get("vision_embeds"))
+    with span("model.embed"):
+        x = transformer.embed_tokens(cfg, params["embed"], tokens,
+                                     batch.get("vision_embeds"))
     x, caches = _backbone(cfg, params, x, batch, mode="prefill",
                           caches=caches, positions=pos)
-    logits = transformer.lm_logits(cfg, params["embed"], x[:, -1:])
+    with span("model.logits"):
+        logits = transformer.lm_logits(cfg, params["embed"], x[:, -1:])
     return logits[:, 0], caches
 
 
@@ -261,9 +264,12 @@ def decode_step(cfg: ModelConfig, params, tokens, positions, caches):
     """One decode step.  tokens (B,1) int; positions (B,) global position
     of the new token per row (continuous batching: rows are independent;
     under M-RoPE all three sections take it).  Returns (logits (B,Vp),
-    caches), the caches updated in place."""
-    x = transformer.embed_tokens(cfg, params["embed"], tokens)
+    caches), the caches updated in place.  Spans (``repro_torch.spans``):
+    ``model.embed``, a ``model.block`` per block, ``model.logits``."""
+    with span("model.embed"):
+        x = transformer.embed_tokens(cfg, params["embed"], tokens)
     x, caches = _backbone(cfg, params, x, mode="decode", caches=caches,
                           positions=_decode_positions(cfg, positions))
-    logits = transformer.lm_logits(cfg, params["embed"], x)
+    with span("model.logits"):
+        logits = transformer.lm_logits(cfg, params["embed"], x)
     return logits[:, 0], caches

@@ -32,6 +32,7 @@ from repro_torch.models.layers import (ParamSpec, dense, dense_spec, mlp,
 from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
                                   gather_weight, local_blocks, psum, shard,
                                   spec_for, use_ctx)
+from repro_torch.spans import span
 
 ATTN_KINDS = ("attn", "local", "global")
 KINDS = ATTN_KINDS + ("ssm", "rglru")
@@ -133,8 +134,10 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
                                      rmsnorm(p["ln1"], x, cfg.norm_eps),
                                      mode=mode, cache=cache)
         x = x + h
-        return x + mlp(cfg, p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                       mode)
+        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        with span("mlp"):
+            h = mlp(cfg, p["ffn"], h, mode)
+        return x + h
     h, _ = attn_mod.attention(cfg, p["attn"],
                               rmsnorm(p["ln1"], x, cfg.norm_eps),
                               positions=positions, mode=mode, cache=cache,
@@ -143,8 +146,9 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
         h = rmsnorm(p["pn1"], h, cfg.norm_eps)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    h2 = moe_mod.moe_block(cfg, p["ffn"], h2) if cfg.num_experts \
-        else mlp(cfg, p["ffn"], h2, mode)
+    with span("mlp"):
+        h2 = moe_mod.moe_block(cfg, p["ffn"], h2) if cfg.num_experts \
+            else mlp(cfg, p["ffn"], h2, mode)
     if cfg.post_norms:
         h2 = rmsnorm(p["pn2"], h2, cfg.norm_eps)
     return x + h2
@@ -170,15 +174,17 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
     the JAX package does; it acts only in train mode with autograd on."""
     remat = remat and mode == "train" and torch.is_grad_enabled()
     groups = [unstack(p, cfg.n_groups) for p in params["groups"]]
+    per = len(cfg.block_pattern)
     for gi in range(cfg.n_groups):
         gp = [g[gi] for g in groups]
         gc = [_index(c, gi) for c in caches["groups"]] \
             if caches is not None else [None] * len(gp)
 
-        def group(h, gp=gp, gc=gc):
-            for kind, p, c in zip(cfg.block_pattern, gp, gc):
-                h = block_forward(cfg, kind, p, h, mode=mode, cache=c,
-                                  positions=positions)
+        def group(h, gp=gp, gc=gc, gi=gi):
+            for j, (kind, p, c) in enumerate(zip(cfg.block_pattern, gp, gc)):
+                with span("model.block", layer=gi * per + j, kind=kind):
+                    h = block_forward(cfg, kind, p, h, mode=mode, cache=c,
+                                      positions=positions)
             # the group boundary is what remat saves; "seq_remat" (None by
             # default) lets wide models store it seq-sharded
             return shard(h, "batch", "seq" if caches is not None
@@ -186,8 +192,9 @@ def run_decoder(cfg, params, x, *, mode: str, caches=None, positions=None,
         x = checkpointed(group, x) if remat else group(x)
     for i, kind in enumerate(cfg.tail_pattern):
         c = caches["tail"][i] if caches is not None else None
-        x = block_forward(cfg, kind, params["tail"][i], x, mode=mode,
-                          cache=c, positions=positions)
+        with span("model.block", layer=cfg.n_groups * per + i, kind=kind):
+            x = block_forward(cfg, kind, params["tail"][i], x, mode=mode,
+                              cache=c, positions=positions)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), caches
 
 

@@ -23,6 +23,17 @@ device operation (prefill, decode step, snapshot, resize).  Every timed
 region ends in a device synchronise, so the wall measures the work and not
 its launch.
 
+Spans (``repro_torch.spans``): while a profiler or ``spans.enable()``
+records, each scheduler iteration leaves a ``tick`` span on the host's
+``perf_counter`` clock, with one child for each of its parts (``grants``,
+``orders``, ``admit``, ``decode``, ``recycle``, ``resize``); below them the
+start paths (``start.cold``, ``start.warm``, ``start.restore``), the
+snapshot capture, ``plug`` and ``unplug``, and the decode step's
+``decode.inputs``, ``decode.dispatch`` (the model's blocks enqueued),
+``decode.sync`` and ``decode.account``.  ``request.queue`` and ``request``
+run from a submission to its admission and to its end.  Otherwise a span
+costs one flag test, and the virtual clock never reads them.
+
 Device: the engine runs where ``params`` live.  On the card every kernel of
 the path is the hand-written one (``repro_torch.kernels.ops``), built and
 loaded when the engine is made, outside every timed region; on the CPU the
@@ -53,10 +64,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.arena import ArenaSpec, ReclaimEvent
 from repro_torch.core.elastic import (ElasticArena, bucket_ladder, sync,
                                       target_bucket)
-from repro_torch.kernels import kv_snapshot, ops
+from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.serving.request import Request, State, slo_tier_of
+from repro_torch.spans import begin, span
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +147,7 @@ def assemble_pages(specs: list) -> np.ndarray:
 
 @dataclasses.dataclass
 class StepEvent:
-    t: float                 # virtual time at start
+    t: float                 # virtual time at the end of the event
     kind: str                # decode | prefill | plug | unplug | ...
     wall_s: float
     detail: dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -241,6 +253,8 @@ class ServeEngine:
         # reassembles its row from these slices — zero h2d payload bytes.
         self._device_pages: dict[str, tuple] = {}
         self._row_req: dict[int, Request] = {}
+        # rid -> (request.queue, request) spans of a recorded submission
+        self._req_spans: dict[str, tuple] = {}
         if prewarm and mode in ("hotmem", "vanilla"):
             self._warm_decode()
 
@@ -331,10 +345,41 @@ class ServeEngine:
     def _sync(self) -> None:
         sync(self.caches)
 
+    def _allocator(self) -> Optional[tuple]:
+        """Device allocations and frees, allocation retries and reserved
+        bytes of the caching allocator (the card only), for the ``plug``
+        and ``unplug`` spans."""
+        if self.device.type != "cuda":
+            return None
+        s = torch.cuda.memory_stats(self.device)
+        return tuple(s.get(k, 0) for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries",
+            "reserved_bytes.all.current"))
+
+    def _note_allocator(self, s, before) -> None:
+        after = self._allocator()
+        if before is None or after is None:
+            return
+        s.note(device_allocs=after[0] - before[0],
+               device_frees=after[1] - before[1],
+               alloc_retries=after[2] - before[2],
+               reserved_before=before[3], reserved_after=after[3])
+
+    def _span_admitted(self, req: Request, path: str) -> None:
+        """End a recorded submission's ``request.queue`` span."""
+        s = self._req_spans.get(req.rid)
+        if s:
+            s[0].end()
+            s[1].note(start=path)
+
     # ------------------------------------------------------------- submit
     def submit(self, req: Request) -> None:
         self._prof_tokens[req.profile.name] = req.profile.prompt_tokens
         self.pending.append(req)
+        whole = begin("request", rid=req.rid)
+        if whole:
+            self._req_spans[req.rid] = (begin("request.queue", rid=req.rid),
+                                        whole)
 
     # -------------------------------------------------------------- admit
     def _try_admit(self) -> None:
@@ -393,37 +438,43 @@ class ServeEngine:
         self.active[req.rid] = req
 
     def _start_cold(self, req: Request, row: int) -> None:
-        req.partition = row
-        req.admitted_s = self.now
-        req.state = State.PREFILL
         prof = req.profile
-        prompt = torch.full((1, prof.prompt_tokens),
-                            hash(prof.name) % 97 + 1, dtype=torch.int32,
-                            device=self.device)
-        t0 = time.perf_counter()
-        row_caches = M.init_caches(self.cfg, 1, self.spec.partition_tokens,
-                                   device=self.device)
-        M.prefill(self.cfg, self.params, {"tokens": prompt}, row_caches)
-        self.caches = M.cache_write_row(self.caches, row_caches, row)
-        self._sync()
-        wall = time.perf_counter() - t0
-        self.now += wall
-        self.events.append(StepEvent(self.now, "prefill", wall,
-                                     {"rid": req.rid}))
-        self._activate(req, row)
-        self.cold_starts += 1
+        with span("start.cold", rid=req.rid,
+                  prompt_tokens=prof.prompt_tokens):
+            self._span_admitted(req, "cold")
+            req.partition = row
+            req.admitted_s = self.now
+            req.state = State.PREFILL
+            prompt = torch.full((1, prof.prompt_tokens),
+                                hash(prof.name) % 97 + 1, dtype=torch.int32,
+                                device=self.device)
+            t0 = time.perf_counter()
+            row_caches = M.init_caches(self.cfg, 1,
+                                       self.spec.partition_tokens,
+                                       device=self.device)
+            M.prefill(self.cfg, self.params, {"tokens": prompt}, row_caches)
+            self.caches = M.cache_write_row(self.caches, row_caches, row)
+            self._sync()
+            wall = time.perf_counter() - t0
+            self.now += wall
+            self.events.append(StepEvent(self.now, "prefill", wall,
+                                         {"rid": req.rid}))
+            self._activate(req, row)
+            self.cold_starts += 1
 
     def _start_warm(self, req: Request, old_rid: str, row: int) -> None:
         """Warm start: prompt KV still resident in the partition — skip
         prefill entirely.  The partition is re-bound by metadata adoption,
         zero data movement."""
-        req.partition = row
-        req.admitted_s = self.now
-        self.arena.manager.adopt(old_rid, req.rid)
-        self._activate(req, row)
-        self.warm_starts += 1
-        self.events.append(StepEvent(self.now, "warm_start", 0.0,
-                                     {"rid": req.rid, "row": row}))
+        with span("start.warm", rid=req.rid, row=row):
+            self._span_admitted(req, "warm")
+            req.partition = row
+            req.admitted_s = self.now
+            self.arena.manager.adopt(old_rid, req.rid)
+            self._activate(req, row)
+            self.warm_starts += 1
+            self.events.append(StepEvent(self.now, "warm_start", 0.0,
+                                         {"rid": req.rid, "row": row}))
 
     def _start_restore(self, req: Request, row: int, snap) -> None:
         """Snapshot restore: copy the function's pooled prefix KV into the
@@ -439,7 +490,17 @@ class ServeEngine:
         re-copied — the charged wall scales by the fraction of pages new
         here.  When EVERY page of a local entry is still resident on
         device (``_device_pages``), the row is reassembled from those
-        slices on the device: zero host->device bytes."""
+        slices on the device: zero host->device bytes.  The event and the
+        ``start.restore`` span give the host->device bytes (``h2d_bytes``)
+        and whether the row was remapped (``remap``)."""
+        with span("start.restore", rid=req.rid, bytes=snap.nbytes) as s:
+            self._span_admitted(req, "restore")
+            detail = self._restore(req, row, snap)
+            if s:
+                s.note(h2d_bytes=detail["h2d_bytes"], remap=detail["remap"],
+                       source=detail["source"])
+
+    def _restore(self, req: Request, row: int, snap) -> dict:
         req.partition = row
         req.admitted_s = self.now
         req.state = State.PREFILL
@@ -462,21 +523,21 @@ class ServeEngine:
                                  for d, _u, _b, _p in specs)])
             dev_blob = dev_u8.view(layout.torch_dtype).reshape(
                 1, layout.total_elems)
-            kv_snapshot.note_remap()
+            h2d = 0
         else:
             blob_u8 = self._reassemble(snap.payload, specs) \
                 if specs is not None else snap.payload.blob
             host_blob = torch.from_numpy(blob_u8).view(
                 layout.torch_dtype).reshape(1, layout.total_elems)
             dev_blob = host_blob.to(self.device)     # ONE fused h2d copy
-            kv_snapshot.note_h2d(blob_u8.nbytes)
+            h2d = blob_u8.nbytes
         self.caches = M.cache_write_rows(self.caches, dev_blob, [row],
                                          layout=layout)
-        kv_snapshot.note_launch("restore")
         self._sync()
         wall = time.perf_counter() - t0
         detail = {"rid": req.rid, "key": snap.key, "bytes": snap.nbytes,
-                  "row": row, "source": "remote" if copy_s else "local"}
+                  "row": row, "source": "remote" if copy_s else "local",
+                  "h2d_bytes": h2d, "remap": remap}
         if specs is not None:
             total = len(specs)
             shared = sum(1 for d, _u, _b, _p in specs if d in self._mapped)
@@ -497,50 +558,61 @@ class ServeEngine:
         self.events.append(StepEvent(self.now, "restore", wall, detail))
         self._activate(req, row)
         self.restore_starts += 1
+        return detail
 
     # -------------------------------------------------------------- decode
     def _decode(self) -> None:
-        rows = self._rows()
-        toks = torch.zeros((rows, 1), dtype=torch.int32)
-        pos = torch.zeros((rows,), dtype=torch.int32)
-        for row, req in self._row_req.items():
-            assert row < rows, \
-                f"active request {req.rid} bound to row {row} but the " \
-                f"arena holds only {rows} rows — a shrink dropped a live " \
-                f"row (free-suffix invariant violated)"
-            pos[row] = req.position
-        t0 = time.perf_counter()
-        _logits, self.caches = M.decode_step(
-            self.cfg, self.params, toks.to(self.device), pos.to(self.device),
-            self.caches)
-        self._sync()
-        wall = time.perf_counter() - t0
-        self.now += wall
-        self.events.append(StepEvent(self.now, "decode", wall,
-                                     {"batch": len(self._row_req)}))
-        finished = []
-        for row, req in list(self._row_req.items()):
-            req.position += 1
-            if req.first_token_s is None:
-                req.first_token_s = self.now
-            if not self.arena.on_tokens(req.rid, 1):
-                req.state = State.KILLED
-                finished.append((row, req))
-                continue
-            if req.position >= req.target_tokens:
-                req.state = State.DONE
-                finished.append((row, req))
-        for row, req in finished:
-            req.done_s = self.now
-            self.done.append(req)
-            del self.active[req.rid]
-            del self._row_req[row]
-            if req.state is State.DONE:
-                # to warm pool: the partition STAYS BOUND (idle container)
-                # until keep-alive expiry recycles it
-                self.warm.setdefault(req.profile.name, []).append(
-                    (self.now, req.rid, row))
-            # KILLED was already force-released by the manager
+        """One decode step over every row.  Its ``StepEvent`` times the
+        inputs' host->device copies, the step and the synchronise."""
+        with span("decode.inputs"):
+            rows = self._rows()
+            toks = torch.zeros((rows, 1), dtype=torch.int32)
+            pos = torch.zeros((rows,), dtype=torch.int32)
+            for row, req in self._row_req.items():
+                assert row < rows, \
+                    f"active request {req.rid} bound to row {row} but the " \
+                    f"arena holds only {rows} rows — a shrink dropped a " \
+                    f"live row (free-suffix invariant violated)"
+                pos[row] = req.position
+            t0 = time.perf_counter()
+            toks, pos = toks.to(self.device), pos.to(self.device)
+        with span("decode.dispatch", rows=rows, batch=len(self._row_req)):
+            _logits, self.caches = M.decode_step(self.cfg, self.params,
+                                                 toks, pos, self.caches)
+        with span("decode.sync"):
+            self._sync()
+            wall = time.perf_counter() - t0
+        with span("decode.account"):
+            self.now += wall
+            self.events.append(StepEvent(self.now, "decode", wall,
+                                         {"batch": len(self._row_req)}))
+            finished = []
+            for row, req in list(self._row_req.items()):
+                req.position += 1
+                if req.first_token_s is None:
+                    req.first_token_s = self.now
+                if not self.arena.on_tokens(req.rid, 1):
+                    req.state = State.KILLED
+                    finished.append((row, req))
+                    continue
+                if req.position >= req.target_tokens:
+                    req.state = State.DONE
+                    finished.append((row, req))
+            for row, req in finished:
+                req.done_s = self.now
+                self.done.append(req)
+                del self.active[req.rid]
+                del self._row_req[row]
+                s = self._req_spans.pop(req.rid, None)
+                if s:
+                    s[1].end(state=req.state.name,
+                             tokens=req.position - req.profile.prompt_tokens)
+                if req.state is State.DONE:
+                    # to warm pool: the partition STAYS BOUND (idle
+                    # container) until keep-alive expiry recycles it
+                    self.warm.setdefault(req.profile.name, []).append(
+                        (self.now, req.rid, row))
+                # KILLED was already force-released by the manager
 
     # ------------------------------------------------------------- elastic
     def _snapshot_layout(self):
@@ -574,14 +646,20 @@ class ServeEngine:
         units = self.spec.blocks_per_partition
         if not self.broker.snapshot_room(prof_name, units):
             return False
+        with span("snapshot.capture", rid=rid, row=row) as s:
+            ok = self._capture(prof_name, rid, row, units)
+            if s:
+                s.note(d2h_bytes=self._snapshot_layout().row_bytes, put=ok)
+        return ok
+
+    def _capture(self, prof_name: str, rid: str, row: int,
+                 units: int) -> bool:
         layout = self._snapshot_layout()
         t0 = time.perf_counter()
         dev_blob = M.cache_read_rows(self.caches, [row], layout=layout)
         # numpy has no bf16: the host copy is the blob's raw bytes
         blob_u8 = dev_blob.view(torch.uint8).reshape(-1).cpu().numpy()
         wall = time.perf_counter() - t0
-        kv_snapshot.note_launch("capture")
-        kv_snapshot.note_d2h(blob_u8.nbytes)
         nbytes = blob_u8.nbytes                      # == sum of leaf nbytes
         treedef = M.cache_flat_axes(self.caches)[2]
         metas = tuple((s.block_shape, layout.dtype) for s in layout.slots)
@@ -677,6 +755,16 @@ class ServeEngine:
         """Grow the arena (through the host gate, or absorbing an
         already-claimed grant fill) + row sync + virtual-clock charge +
         event log.  Returns native units actually added."""
+        with span("plug", units=native, rows=self._rows()) as s:
+            mem = self._allocator() if s else None
+            added = self._plug(native, via_gate, detail)
+            if s:
+                s.note(added=added, rows_after=self._rows())
+                self._note_allocator(s, mem)
+        return added
+
+    def _plug(self, native: int, via_gate: bool,
+              detail: Optional[dict]) -> int:
         before = self.arena.units()
         # absorb path: the claimed fill is a whole stripe (claim_grant only
         # releases coherent units); hotmem's native unit is a partition,
@@ -701,6 +789,18 @@ class ServeEngine:
         """Unplug + row sync + virtual-clock charge + event log — shared by
         self-initiated shrink and broker-initiated steals (which do their
         own host accounting, hence ``notify_host=False``)."""
+        with span("unplug", units=units, rows=self._rows(),
+                  stolen=stolen) as s:
+            mem = self._allocator() if s else None
+            ev = self._unplug(units, stolen)
+            if s:
+                s.note(rows_after=self._rows(),
+                       reclaimed_bytes=ev.reclaimed_bytes,
+                       migrated_bytes=ev.migrated_bytes)
+                self._note_allocator(s, mem)
+        return ev
+
+    def _unplug(self, units: int, stolen: bool) -> ReclaimEvent:
         ev = self.arena.unplug(units, notify_host=not stolen)
         t0 = time.perf_counter()
         self._sync_rows(self._units())
@@ -868,27 +968,35 @@ class ServeEngine:
     def _tick(self, todo: deque) -> None:
         """One scheduler iteration: submit due arrivals, admit, decode (or
         let time pass), recycle idle containers, resize."""
-        while todo and todo[0].submit_s <= self.now:
-            self.submit(todo.popleft())
-        self._claim_grants(abandon=not todo and not self.active
-                           and not self.pending
-                           and not any(self.warm.values()))
-        self._service_reclaim_orders()
-        if not self.active and not self.pending and todo:
-            self.now = max(self.now, todo[0].submit_s)
-            return
-        self._try_admit()
-        if self._row_req:
-            self._decode()
-        elif self.pending:
-            # stuck in waitqueue: let time pass so warm rows expire /
-            # the next resize can plug
-            self.now += 0.01
-        elif not todo and not self.pending and not self.active:
-            # drain: idle containers age out, triggering final unplugs
-            self.now += self.keep_alive / 8
-        self._recycle_idle()
-        self._resize()
+        with span("tick", replica=self.replica_id, active=len(self.active),
+                  pending=len(self.pending)):
+            while todo and todo[0].submit_s <= self.now:
+                self.submit(todo.popleft())
+            with span("grants"):
+                self._claim_grants(abandon=not todo and not self.active
+                                   and not self.pending
+                                   and not any(self.warm.values()))
+            with span("orders"):
+                self._service_reclaim_orders()
+            if not self.active and not self.pending and todo:
+                self.now = max(self.now, todo[0].submit_s)
+                return
+            with span("admit"):
+                self._try_admit()
+            if self._row_req:
+                with span("decode"):
+                    self._decode()
+            elif self.pending:
+                # stuck in waitqueue: let time pass so warm rows expire /
+                # the next resize can plug
+                self.now += 0.01
+            elif not todo and not self.pending and not self.active:
+                # drain: idle containers age out, triggering final unplugs
+                self.now += self.keep_alive / 8
+            with span("recycle"):
+                self._recycle_idle()
+            with span("resize"):
+                self._resize()
 
     def run(self, requests: list[Request], max_virtual_s: float = 1e9):
         todo = deque(sorted(requests, key=lambda r: r.submit_s))

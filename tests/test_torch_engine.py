@@ -16,7 +16,7 @@ from repro.serving import engine as jax_engine
 from repro_torch.cluster.host import HostMemoryBroker
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.core.arena import ArenaSpec
-from repro_torch.kernels import kv_snapshot
+from repro_torch.kernels import kv_snapshot, ops
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_flatten, tree_leaves
 from repro_torch.serving.engine import (ServeEngine, StagedRow,
@@ -184,45 +184,64 @@ def test_restored_row_is_bit_identical_to_the_captured_row(setup):
         assert torch.equal(a[:, :, :n], b[:, :, :n])
 
 
-# ------------------- tests/test_kernels.py one-launch / one-transfer STATS
+# ------------- tests/test_kernels.py one-launch / one-transfer data plane
 
 
-def test_engine_capture_restore_transfer_counts(setup):
+@pytest.fixture
+def launches(monkeypatch):
+    """Calls of the fused snapshot wrappers.  One call is one kernel launch
+    on the card, where ``ops.LAUNCHES`` counts it; on the CPU it runs the
+    plain version and counts nothing there."""
+    n = {"snapshot_capture": 0, "snapshot_restore": 0}
+    for name in n:
+        def counted(*a, _fn=getattr(ops, name), _name=name, **kw):
+            n[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    return n
+
+
+def _new_events(eng, n0: int, kind: str) -> list:
+    return [e for e in eng.events[n0:] if e.kind == kind]
+
+
+def test_engine_capture_restore_transfer_counts(setup, launches):
     _broker, eng = _pooled(setup)
     _run_one(eng, "c0")
     layout = eng._snapshot_layout()
-    kv_snapshot.reset_stats()
+    n0 = len(eng.events)
     _expire(eng)                               # capture on expiry
-    s = kv_snapshot.STATS
-    assert s["capture_launches"] == 1
-    assert s["d2h_transfers"] == 1
-    assert s["d2h_bytes"] == layout.row_bytes
-    assert s["h2d_transfers"] == 0
-    kv_snapshot.reset_stats()
+    snap = _new_events(eng, n0, "snapshot")    # one device->host copy
+    assert len(snap) == 1 and snap[0].detail["bytes"] == layout.row_bytes
+    assert _new_events(eng, n0, "restore") == []
+    assert launches == {"snapshot_capture": 1, "snapshot_restore": 0}
+    n0 = len(eng.events)
     _run_one(eng, "s0")                        # restore from the pool
     assert eng.restore_starts == 1
-    s = kv_snapshot.STATS
-    assert s["restore_launches"] == 1
-    assert s["h2d_transfers"] == 1 and s["h2d_bytes"] == layout.row_bytes
-    assert s["d2h_transfers"] == 0             # restore never reads back
+    rest = _new_events(eng, n0, "restore")
+    assert len(rest) == 1 and rest[0].detail["remap"] is False
+    assert rest[0].detail["h2d_bytes"] == layout.row_bytes
+    assert _new_events(eng, n0, "snapshot") == []   # never reads back
+    assert launches == {"snapshot_capture": 1, "snapshot_restore": 1}
 
 
 # -------------------------- tests/test_snapshot_plane.py paged CoW restore
 
 
-def test_fully_mapped_local_cow_restore_moves_zero_h2d_bytes(setup):
+def test_fully_mapped_local_cow_restore_moves_zero_h2d_bytes(setup,
+                                                            launches):
     broker, eng = _pooled(setup, snapshot_page_bytes=4096)
     _run_one(eng, "c0")
     _expire(eng)                                  # capture + page index
     snap = broker.snapshots.peek("cnn")
     assert snap is not None and snap.pages is not None
-    kv_snapshot.reset_stats()
+    n0 = len(eng.events)
     _run_one(eng, "r0")                           # every page device-mapped
     assert eng.restore_starts == 1
-    s = kv_snapshot.STATS
-    assert s["remap_restores"] == 1
-    assert s["h2d_transfers"] == 0 and s["h2d_bytes"] == 0
-    assert s["restore_launches"] == 1             # still ONE fused scatter
+    rest = _new_events(eng, n0, "restore")
+    assert len(rest) == 1 and rest[0].detail["remap"] is True
+    assert rest[0].detail["h2d_bytes"] == 0
+    assert launches["snapshot_restore"] == 1      # still ONE fused scatter
     ev = next(e for e in eng.events if e.kind == "restore")
     assert ev.detail["pages_shared"] == ev.detail["pages_total"]
     broker.check_invariants()
@@ -236,11 +255,12 @@ def test_paged_restore_on_fresh_replica_pays_one_h2d(setup):
     _run_one(a, "c0")
     _expire(a)
     layout = a._snapshot_layout()
-    kv_snapshot.reset_stats()
     _run_one(b, "r1")
-    s = kv_snapshot.STATS
-    assert b.restore_starts == 1 and s["remap_restores"] == 0
-    assert s["h2d_transfers"] == 1 and s["h2d_bytes"] == layout.row_bytes
+    rest = _new_events(b, 0, "restore")
+    assert b.restore_starts == 1 and len(rest) == 1
+    assert rest[0].detail["remap"] is False
+    assert rest[0].detail["h2d_bytes"] == layout.row_bytes
+    assert _new_events(a, 0, "restore") == []
     ev = next(e for e in b.events if e.kind == "restore")
     assert ev.detail["pages_shared"] == 0
     broker.check_invariants()

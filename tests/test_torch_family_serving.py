@@ -113,6 +113,14 @@ def test_vanilla_bursty_trace_matches_jax(monkeypatch):
     assert all(x.shape[2] == cfg.n_groups for x in eng.pool)
 
 
+def _jax_view(e):
+    """A port ``StepEvent`` as the JAX engine gives it: without the
+    restore's ``h2d_bytes`` and ``remap``, which only the port's has."""
+    return (e.t, e.kind, e.wall_s,
+            {k: v for k, v in e.detail.items()
+             if k not in ("h2d_bytes", "remap")})
+
+
 def test_snapshot_schedule_matches_jax(setup, monkeypatch):
     """Cold, warm, capture on expiry, restore, restore: the restore path is
     taken twice, as in the JAX engine, every ``StepEvent`` agrees, and the
@@ -123,8 +131,12 @@ def test_snapshot_schedule_matches_jax(setup, monkeypatch):
     starts = (got.cold_starts, got.warm_starts, got.restore_starts)
     assert starts == (want.cold_starts, want.warm_starts,
                       want.restore_starts) == (1, 1, 2)
-    assert [(e.t, e.kind, e.wall_s, e.detail) for e in got.events] == \
+    assert [_jax_view(e) for e in got.events] == \
         [(e.t, e.kind, e.wall_s, e.detail) for e in want.events]
+    # the port's restores also give their host->device bytes: the row's
+    rest = [e.detail for e in got.events if e.kind == "restore"]
+    assert len(rest) == 2 and all(
+        d["h2d_bytes"] == d["bytes"] and d["remap"] is False for d in rest)
     snap = [e for e in got.events if e.kind == "snapshot"]
     assert len(snap) == 1 and snap[0].detail["bytes"] == \
         kv_snapshot.expected_row_bytes(cfg, spec.partition_tokens) == \

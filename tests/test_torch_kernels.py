@@ -252,16 +252,15 @@ def test_expected_row_bytes_and_cost_models():
 
 
 def test_snapshot_stats_counters():
-    kv_snapshot.reset_stats()
-    kv_snapshot.note_launch("capture")
-    kv_snapshot.note_d2h(10)
-    kv_snapshot.note_h2d(7)
-    kv_snapshot.note_remap()
-    s = kv_snapshot.STATS
-    assert (s["capture_launches"], s["d2h_transfers"], s["d2h_bytes"],
-            s["h2d_bytes"], s["remap_restores"]) == (1, 1, 10, 7, 1)
-    kv_snapshot.reset_stats()
-    assert not any(kv_snapshot.STATS.values())
+    """The port counts the snapshot kernels' launches in ``ops.LAUNCHES``
+    alone: the JAX package's ``STATS`` transfer counters are not kept (the
+    engine's events carry the bytes)."""
+    assert not hasattr(kv_snapshot, "STATS")
+    ops.LAUNCHES["snapshot_capture"] += 1
+    ops.LAUNCHES["snapshot_restore"] += 2
+    ops.reset_launches()
+    assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
+    assert {"snapshot_capture", "snapshot_restore"} <= set(ops.LAUNCHES)
 
 
 def test_cpu_wrappers_do_not_count_launches():

@@ -43,7 +43,7 @@ from repro_torch.cluster.host import HostMemoryBroker
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.convert import tree_from_numpy
 from repro_torch.core.arena import ArenaSpec
-from repro_torch.kernels import kv_snapshot
+from repro_torch.kernels import kv_snapshot, ops
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_leaves, tree_map_specs
 from repro_torch.serving.engine import ServeEngine
@@ -353,6 +353,14 @@ def _snapshot_schedule(setup, monkeypatch, pkg):
     return eng
 
 
+def _jax_view(e):
+    """A port ``StepEvent`` as the JAX engine gives it: without the
+    restore's ``h2d_bytes`` and ``remap``, which only the port's has."""
+    return (e.t, e.kind, e.wall_s,
+            {k: v for k, v in e.detail.items()
+             if k not in ("h2d_bytes", "remap")})
+
+
 def test_snapshot_schedule_matches_jax(setup, monkeypatch):
     """The restore path is taken twice, as in the JAX engine, and every
     ``StepEvent`` agrees (the captured bytes are the spec's row bytes)."""
@@ -362,31 +370,51 @@ def test_snapshot_schedule_matches_jax(setup, monkeypatch):
     starts = (got.cold_starts, got.warm_starts, got.restore_starts)
     assert starts == (want.cold_starts, want.warm_starts,
                       want.restore_starts) == (1, 1, 2)
-    assert [(e.t, e.kind, e.wall_s, e.detail) for e in got.events] == \
+    assert [_jax_view(e) for e in got.events] == \
         [(e.t, e.kind, e.wall_s, e.detail) for e in want.events]
+    # the port's restores also give their host->device bytes: the row's
+    rest = [e.detail for e in got.events if e.kind == "restore"]
+    assert len(rest) == 2 and all(
+        d["h2d_bytes"] == d["bytes"] and d["remap"] is False for d in rest)
     snap = [e for e in got.events if e.kind == "snapshot"]
     assert len(snap) == 1 and snap[0].detail["bytes"] == \
         kv_snapshot.expected_row_bytes(cfg, spec.partition_tokens)
 
 
-def test_restored_row_equals_its_captured_blob(setup):
+def _count_snapshot_calls(monkeypatch) -> dict:
+    """Calls of the fused snapshot wrappers: one call is one kernel launch
+    on the card (``ops.LAUNCHES``), the plain version on the CPU."""
+    n = {"snapshot_capture": 0, "snapshot_restore": 0}
+    for name in n:
+        def counted(*a, _fn=getattr(ops, name), _name=name, **kw):
+            n[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    return n
+
+
+def test_restored_row_equals_its_captured_blob(setup, monkeypatch):
     """The row a restore writes equals the blob the capture took, byte for
     byte, read right after the restore (a decode step would advance the
     recurrent state), and one fused launch did each side."""
     broker, eng = _pooled(setup, "torch")
     _run_one(eng, "c0")
-    kv_snapshot.reset_stats()
+    calls = _count_snapshot_calls(monkeypatch)
+    n0 = len(eng.events)
     _expire(eng)
     blob = broker.snapshot_lookup("cnn").payload.blob
     eng.submit(Request(rid="s0", profile=PROFILES["cnn"], submit_s=eng.now))
     eng._try_admit()
     assert eng.restore_starts == 1
     row = eng.active["s0"].partition
+    assert calls == {"snapshot_capture": 1, "snapshot_restore": 1}
     back = M.cache_read_rows(eng.caches, [row])
     assert _bytes(back) == blob.tobytes()
-    s = kv_snapshot.STATS
-    assert (s["capture_launches"], s["restore_launches"]) == (1, 1)
-    assert s["d2h_bytes"] == s["h2d_bytes"] == blob.nbytes
+    snap, rest = ([e for e in eng.events[n0:] if e.kind == k]
+                  for k in ("snapshot", "restore"))
+    assert len(snap) == len(rest) == 1
+    assert snap[0].detail["bytes"] == rest[0].detail["h2d_bytes"] \
+        == blob.nbytes
 
 
 def test_paged_cow_restore_remaps_a_partial_last_page(setup):
@@ -401,11 +429,11 @@ def test_paged_cow_restore_remaps_a_partial_last_page(setup):
     assert row_bytes % 1000 != 0
     assert len(snap.pages) == math.ceil(row_bytes / 1000)
     blob = engine_mod.assemble_pages(broker.snapshot_page_specs("cnn"))
-    kv_snapshot.reset_stats()
     eng.submit(Request(rid="r0", profile=PROFILES["cnn"], submit_s=eng.now))
     eng._try_admit()
-    s = kv_snapshot.STATS
-    assert s["remap_restores"] == 1 and s["h2d_bytes"] == 0
+    ev = [e for e in eng.events if e.kind == "restore"]
+    assert len(ev) == 1 and ev[0].detail["remap"] is True
+    assert ev[0].detail["h2d_bytes"] == 0
     back = M.cache_read_rows(eng.caches, [eng.active["r0"].partition])
     assert _bytes(back) == blob.tobytes()
 
