@@ -60,6 +60,7 @@ last three lines are the kernel table, the card's name and power limit as
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -1186,7 +1187,7 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
                   for k, v in burst_walls.items() if v}
     emit({"phase": "engine", "run_seconds": run_s,
           "decode_steps": decode_steps, "launches": launches,
-          "stats": stats, "unplug_memory": drops,
+          "unplug_memory": drops,
           "vanilla_unplug_memory": van_drops,
           "unplug_walls_ms": unplug_ms, "vanilla_scripted": scripted,
           "vanilla_burst": {k: v for k, v in m_van.items() if k != "events"},
@@ -1247,6 +1248,18 @@ def _allocated() -> int:
     return torch.cuda.memory_allocated(DEV)
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """No garbage collection inside a measured drop of device memory: an
+    earlier run's replicas and broker hold each other, and a collection
+    there would count their arenas as freed by the unplug measured."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def _digest(blob) -> str:
     """sha256 of a row blob's bytes (a host uint8 array or a device blob)."""
     if isinstance(blob, torch.Tensor):
@@ -1296,15 +1309,18 @@ class ClusterProbe:
             if not stolen:
                 return unplug(units)
             before = self._survivors(eng)
-            mem0 = _allocated()
-            ev = unplug(units, stolen=True)
-            freed = mem0 - _allocated()
+            with _no_collection():
+                mem0, asked = _allocated(), _requested()
+                ev = unplug(units, stolen=True)
+                freed, freed_asked = mem0 - _allocated(), asked - _requested()
             self.steals.append({
                 "victim": eng.replica_id, "mode": eng.mode,
                 "units": ev.reclaimed_units,
                 "reclaimed_bytes": ev.reclaimed_bytes,
                 "migrated_blocks": ev.migrated_blocks,
-                "freed_bytes": freed,
+                "freed_bytes": freed, "freed_requested_bytes": freed_asked,
+                "leaves": len(M.cache_flat_axes(eng.caches)[0])
+                if eng.mode == "hotmem" else len(eng.pool),
                 "survivors": eng._rows() if eng.mode == "hotmem"
                 else len(before),
                 "survivors_unchanged": self._unchanged(eng, before)})
@@ -1361,10 +1377,14 @@ class ClusterProbe:
     def steal_checks(self, steals: list[dict]) -> dict:
         spec = self.spec
         return {
-            "memory drop == stolen bytes": all(
-                s["freed_bytes"] == s["reclaimed_bytes"] == s["units"] * (
-                    spec.bytes_per_partition if s["mode"] == "hotmem"
-                    else spec.bytes_per_block) for s in steals),
+            "requested bytes drop == stolen bytes; memory_allocated() "
+            "within 1 MiB of block slack per leaf": all(
+                s["freed_requested_bytes"] == s["reclaimed_bytes"]
+                == s["units"] * (spec.bytes_per_partition
+                                 if s["mode"] == "hotmem"
+                                 else spec.bytes_per_block)
+                and abs(s["freed_bytes"] - s["reclaimed_bytes"])
+                < s["leaves"] * (1 << 20) for s in steals),
             "survivors' K/V unchanged": all(s["survivors_unchanged"]
                                             for s in steals)}
 
@@ -1616,16 +1636,20 @@ def phase_cluster(cfg, params, gen) -> tuple[dict, dict]:
                                 "arena_growth_bytes")}
              for r in runs + [fleet]]
     memory = [{k: s[k] for k in ("victim", "mode", "units", "freed_bytes",
-                                 "reclaimed_bytes", "migrated_blocks",
-                                 "survivors")} for s in probe.steals]
+                                 "freed_requested_bytes", "reclaimed_bytes",
+                                 "migrated_blocks", "survivors")}
+              for s in probe.steals]
     emit({"phase": "cluster", "seconds": seconds, "launches": launches,
-          "stats": stats, "checks": checks,
+          "checks": checks,
           "scripted": {m: {k: r[k] for k in (
               "steals", "stolen_units", "by_mode", "kv_compact_launches",
               "completed", "killed", "decode_steps", "natural_fills")}
               for m, r in scripted.items()},
           "runs": table, "restores": probe.restores,
-          "steal_memory": memory[:8], "steals_checked": len(memory)})
+          "steal_memory": memory[:8], "steals_checked": len(memory),
+          "steal_memory_off": [
+              dict(m, n=i) for i, m in enumerate(memory)
+              if m["freed_bytes"] != m["reclaimed_bytes"]][:8]})
     emit({"phase": "cluster_steal_walls_ms", **walls})
     for what, ok in checks.items():
         check(ok, what)
@@ -1840,13 +1864,15 @@ def _watch_unplugs(eng, drops: list) -> None:
 
     def measured(parts):
         rows = eng._rows()
-        before, asked = _allocated(), _requested()
-        sync_rows(parts)
+        with _no_collection():
+            before, asked = _allocated(), _requested()
+            sync_rows(parts)
+            freed, freed_asked = before - _allocated(), asked - _requested()
         if parts < rows:
             drops.append({"replica": eng.replica_id, "rows": rows,
                           "parts": parts,
-                          "freed_bytes": before - _allocated(),
-                          "freed_requested_bytes": asked - _requested(),
+                          "freed_bytes": freed,
+                          "freed_requested_bytes": freed_asked,
                           "row_bytes": (rows - parts)
                           * eng.spec.bytes_per_partition})
     eng._sync_rows = measured
@@ -1975,7 +2001,7 @@ def _family_engines(cfg, params, gen) -> tuple[dict, dict]:
           "run_seconds": run_s, "bytes_per_partition":
           spec.bytes_per_partition, "pages_per_row": pages,
           "attention_layers": attn_layers, "decode_steps": decode_steps,
-          "engines": len(engines), "launches": launches, "stats": stats,
+          "engines": len(engines), "launches": launches,
           "unplug_memory": drops, "restores": probe.restores,
           "walls_ms": {k: v for k, v in walls.items() if k != "decode"},
           "wall_stats_ms": wall_stats,

@@ -8,7 +8,8 @@ that the check sees them whichever files were collected."""
 import importlib
 
 # modules whose ``EXPECT`` joins the metric readers' table
-READER_TABLES = ("squeeze_bench.tests.test_sqb_span_metrics",)
+READER_TABLES = ("squeeze_bench.tests.test_sqb_span_metrics",
+                 "squeeze_bench.tests.test_sqb_decode_graph")
 
 
 def pytest_collection_modifyitems(items):

@@ -211,9 +211,11 @@ def embed_tokens(cfg, embed_params, tokens, vision_embeds=None):
             x = table[ids]
         if cfg.scale_embeddings:
             # the scale is rounded to the activation dtype first, as the
-            # JAX package computes it (sqrt(2560) is 50.5 in bf16)
+            # JAX package computes it (sqrt(2560) is 50.5 in bf16); a CPU
+            # scalar, so that the step copies nothing to the card and can
+            # be captured in a CUDA graph
             x = x * torch.sqrt(torch.tensor(float(cfg.d_model),
-                                            dtype=x.dtype, device=x.device))
+                                            dtype=x.dtype))
         if vision:                     # stub patches over the first tokens
             x[:, :vision[0].shape[1]] = vision[0].to(x.dtype)
         return x

@@ -29,7 +29,8 @@ records, each scheduler iteration leaves a ``tick`` span on the host's
 ``orders``, ``admit``, ``decode``, ``recycle``, ``resize``); below them the
 start paths (``start.cold``, ``start.warm``, ``start.restore``), the
 snapshot capture, ``plug`` and ``unplug``, and the decode step's
-``decode.inputs``, ``decode.dispatch`` (the model's blocks enqueued),
+``decode.inputs``, ``decode.dispatch`` (the model's blocks enqueued, or
+the step's graph replayed; its ``graph`` attribute says which),
 ``decode.sync`` and ``decode.account``.  ``request.queue`` and ``request``
 run from a submission to its admission and to its end.  Otherwise a span
 costs one flag test, and the virtual clock never reads them.
@@ -37,7 +38,10 @@ costs one flag test, and the virtual clock never reads them.
 Device: the engine runs where ``params`` live.  On the card every kernel of
 the path is the hand-written one (``repro_torch.kernels.ops``), built and
 loaded when the engine is made, outside every timed region; on the CPU the
-same wrappers run their plain versions.
+same wrappers run their plain versions.  Where the step can be captured
+(``models.decode_graph.eligible``), the card replays it from a CUDA graph
+while the arena keeps its caches, and steps it eagerly, then captures it,
+after each resize.
 
 Modes (paper Fig. 8/9/10):
   hotmem  — partition arena; shrink is metadata + prefix slice.
@@ -65,6 +69,7 @@ from repro_torch.core.arena import ArenaSpec, ReclaimEvent
 from repro_torch.core.elastic import (ElasticArena, bucket_ladder, sync,
                                       target_bucket)
 from repro_torch.kernels import ops
+from repro_torch.models import decode_graph
 from repro_torch.models import model as M
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.serving.request import Request, State, slo_tier_of
@@ -241,6 +246,10 @@ class ServeEngine:
         self.warm_starts = 0
         self.restore_starts = 0
         self.remote_restore_starts = 0
+        # decode steps captured into, and replayed from, a CUDA graph
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._graph: Optional[decode_graph.DecodeGraph] = None
         self._prof_tokens: dict[str, int] = {}   # profile -> prompt tokens
         # content-addressed capture (``snapshot_page_bytes`` set): offered
         # partitions split into pages keyed by content hash; ``_mapped``
@@ -561,9 +570,20 @@ class ServeEngine:
         return detail
 
     # -------------------------------------------------------------- decode
+    def _decode_graph(self) -> Optional[decode_graph.DecodeGraph]:
+        """The engine's decode graph where the step can be captured now,
+        else None."""
+        if not decode_graph.eligible(self.cfg, self.device):
+            return None
+        if self._graph is None:
+            self._graph = decode_graph.DecodeGraph(self.cfg, self.params,
+                                                   self.device)
+        return self._graph
+
     def _decode(self) -> None:
         """One decode step over every row.  Its ``StepEvent`` times the
         inputs' host->device copies, the step and the synchronise."""
+        graph = self._decode_graph()
         with span("decode.inputs"):
             rows = self._rows()
             toks = torch.zeros((rows, 1), dtype=torch.int32)
@@ -575,10 +595,22 @@ class ServeEngine:
                     f"live row (free-suffix invariant violated)"
                 pos[row] = req.position
             t0 = time.perf_counter()
-            toks, pos = toks.to(self.device), pos.to(self.device)
-        with span("decode.dispatch", rows=rows, batch=len(self._row_req)):
-            _logits, self.caches = M.decode_step(self.cfg, self.params,
-                                                 toks, pos, self.caches)
+            if graph is None:
+                toks, pos = toks.to(self.device), pos.to(self.device)
+            else:
+                graph.load(toks, pos)
+        with span("decode.dispatch", rows=rows,
+                  batch=len(self._row_req)) as s:
+            if graph is None:
+                how = "eager"
+                _logits, self.caches = M.decode_step(self.cfg, self.params,
+                                                     toks, pos, self.caches)
+            else:
+                how = graph.step(self.caches)
+                self.graph_captures += how == "capture"
+                self.graph_replays += how == "replay"
+            if s:
+                s.note(graph=how)
         with span("decode.sync"):
             self._sync()
             wall = time.perf_counter() - t0
