@@ -12,9 +12,12 @@ frees the program's state, and runs the reference once per function over
 the ids this process's engine used (its prompt token, ``hash(name) % 97 +
 1``, ``prompt_tokens`` times, then token 0 at every decode position).
 
-Numbers compared, each with its limit (``LIMITS``), against the
-reference in the configuration's type (bf16: the plain published block,
-norms, RoPE angles and softmax in f32, matmuls accumulating in f32):
+The reference is the configuration's (``reference``): a module under
+``reference/`` named in its file, ``decoder`` where the file names none,
+run in the configuration's type.  ``decoder`` is the plain published
+dense block in bf16, with the norms, RoPE angles and softmax in f32 and
+the matmuls accumulating in f32.  Numbers compared, each with its limit
+(``LIMITS``):
   kv_head_err   worst over the judged rows of |program - reference| /
                 |reference| over the row's written slots, K and V, in
                 each of the first ``HEAD_LAYERS`` layers (a slot written
@@ -35,6 +38,9 @@ norms, RoPE angles and softmax in f32, matmuls accumulating in f32):
 """
 from __future__ import annotations
 
+import importlib
+import re
+
 import torch
 
 # limits: see PERF.md for the readings each was set from
@@ -50,6 +56,37 @@ LIMITS = {
 
 
 HEAD_LAYERS = 4         # the layers ``kv_head_err`` covers
+
+
+def reference(config: dict):
+    """The plain reference module that judges ``config``: the bare name in
+    its ``"reference"`` key (``decoder`` where it has none) of a module
+    under ``reference/``, holding ``covers(model)`` and ``kv_cache(model,
+    params, tokens, dtype=...)``, whose ``covers`` accepted the file's
+    ``model``.  Raises ``ValueError`` with a one-line reason otherwise."""
+    name = config.get("reference", "decoder")
+    if not isinstance(name, str) \
+            or not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise ValueError(f"reference {name!r} is not the bare name of a "
+                         "module under squeeze_bench/reference/")
+    full = f"squeeze_bench.reference.{name}"
+    try:
+        mod = importlib.import_module(full)
+    except ModuleNotFoundError as e:
+        if e.name != full:
+            raise
+        raise ValueError(f"no reference module {name!r} under "
+                         "squeeze_bench/reference/") from None
+    missing = [f for f in ("covers", "kv_cache")
+               if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"reference {name!r} lacks {', '.join(missing)}")
+    try:
+        mod.covers(config["model"])
+    except NotImplementedError as e:
+        raise ValueError(f"reference {name!r} does not cover this "
+                         f"configuration's model: {e}") from None
+    return mod
 
 
 def prompt_token(name: str) -> int:

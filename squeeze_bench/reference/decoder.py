@@ -74,6 +74,15 @@ def layer_params(group: dict, i: int, dtype) -> dict:
     return x.to(f32) if x.dtype == f32 else x.to(dtype)
 
 
+def covers(model: dict) -> None:
+    """Raises ``NotImplementedError``, with the reason, for a ``model``
+    whose block this reference does not compute."""
+    if model.get("num_experts"):
+        raise NotImplementedError("this reference is the dense block")
+    if model.get("act", "silu") != "silu":
+        raise NotImplementedError("this reference is the SiLU MLP")
+
+
 def kv_cache(model: dict, params: dict, tokens: torch.Tensor,
              qblock: int = 1024, dtype=f32):
     """tokens (S,) int64 on the weights' device -> (K, V), each
@@ -86,10 +95,7 @@ def kv_cache(model: dict, params: dict, tokens: torch.Tensor,
     the plain published block in that type, with the norms, the RoPE
     angles and the softmax in f32 and every matmul accumulating in f32, as
     the Qwen2 reference code runs it)."""
-    if model.get("num_experts"):
-        raise NotImplementedError("this reference is the dense block")
-    if model.get("act", "silu") != "silu":
-        raise NotImplementedError("this reference is the SiLU MLP")
+    covers(model)
     hq, hkv, dh = model["num_heads"], model["num_kv_heads"], model["head_dim"]
     eps, theta = model["norm_eps"], model["rope_theta"]
     s = tokens.shape[0]

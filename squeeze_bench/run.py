@@ -10,8 +10,10 @@ asks for.  ``--trace 1`` reports the cell's per-layer metrics (a
 ``torch.profiler`` trace of the mix's ``trace_window``) instead of its
 end-to-end ones.  The last line of standard output is one JSON object;
 the numbers that decide ``correct`` end standard error, each beside its
-limit.  Exit codes: 0 a result was printed; 2 bad arguments or files; 3 no
-CUDA device, or too few; 4 JAX or the JAX package was loaded.
+limit.  Exit codes: 0 a result was printed; 2 bad arguments or files,
+or a configuration that its plain reference does not cover (decided
+before set-up); 3 no CUDA device, or too few; 4 JAX or the JAX package
+was loaded.
 
 ``--control int8`` (not part of the cell) serves the port's int8 weight
 path instead of bf16: the control the limits were set against.
@@ -113,6 +115,11 @@ def main(argv=None) -> int:
     from squeeze_bench import check, e2e, harness
     bench = json.loads(bench_path.read_text())
     wl, config, mix = harness.load_cell(args.workload, bench_path)
+    try:
+        reference = check.reference(config)
+    except ValueError as e:
+        print(f"{args.workload}: {e}", file=sys.stderr)
+        return 2
 
     import torch
     if not torch.cuda.is_available() \
@@ -143,10 +150,9 @@ def main(argv=None) -> int:
         rep.engine = None
     cell.broker = None
     torch.cuda.synchronize()
-    from squeeze_bench.reference import decoder
     dtype = getattr(torch, config["dtype"])
     numbers.update(check.judge(
-        run, items, lambda tok: decoder.kv_cache(
+        run, items, lambda tok: reference.kv_cache(
             config["model"], cell.params, tok, dtype=dtype)))
     correct, shown = check.verdict(numbers)
 

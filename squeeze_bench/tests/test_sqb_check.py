@@ -17,16 +17,40 @@ torch.set_num_threads(1)
 
 
 def run_cell(mix_name, seed=3, control=None, seconds=1.6):
+    """One small run judged as ``run.py`` judges it: through the
+    configuration's own reference."""
     cfg, mix = small.config(), small.mix(mix_name)
+    reference = check.reference(cfg)
     run = harness.execute(cfg, mix, seed=seed, seconds=seconds,
                           traced=False, device="cpu",
                           t_process=time.perf_counter(), control=control)
     numbers = check.bookkeeping(run)
     items = check.collect(run)
     params = run["cell"].params
-    numbers.update(check.judge(run, items, lambda tok: decoder.kv_cache(
+    numbers.update(check.judge(run, items, lambda tok: reference.kv_cache(
         cfg["model"], params, tok, dtype=torch.bfloat16)))
     return check.verdict(numbers), numbers, run
+
+
+def test_the_picked_reference_judges_bit_equal_to_the_dense_one():
+    """With no ``reference`` key the picker gives ``decoder``, and a small
+    cell judged through it reads the same numbers, bit for bit, as one
+    judged through ``decoder.kv_cache`` directly."""
+    cfg = small.config()
+    assert "reference" not in cfg
+    run = harness.execute(cfg, small.mix("saturated"), seed=5, seconds=1.6,
+                          traced=False, device="cpu",
+                          t_process=time.perf_counter())
+    items = check.collect(run)
+    params = run["cell"].params
+    picked = check.reference(cfg)
+    via_pick = check.judge(run, items, lambda tok: picked.kv_cache(
+        cfg["model"], params, tok, dtype=torch.bfloat16))
+    direct = check.judge(run, items, lambda tok: decoder.kv_cache(
+        cfg["model"], params, tok, dtype=torch.bfloat16))
+    assert picked is decoder
+    assert via_pick["rows_judged"] >= 1
+    assert via_pick == direct
 
 
 @pytest.mark.parametrize("mix", ["burst_snapshot", "saturated"])

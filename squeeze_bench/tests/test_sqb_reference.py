@@ -79,6 +79,18 @@ def test_reference_refuses_experts():
         decoder.kv_cache(model_dict(cfg), {}, torch.zeros(4, dtype=torch.long))
 
 
+@pytest.mark.parametrize("arch,refused", [
+    ("qwen2-7b", None), ("tinyllama-1.1b", None),
+    ("mixtral-8x7b", "dense block"), ("gemma2-9b", "SiLU MLP")])
+def test_covers_says_what_the_reference_computes(arch, refused):
+    model = model_dict(reduced(get_config(arch)))
+    if refused is None:
+        decoder.covers(model)
+        return
+    with pytest.raises(NotImplementedError, match=refused):
+        decoder.covers(model)
+
+
 def test_weights_repeat_by_seed_and_quantize():
     cfg = reduced(get_config("qwen2-7b"))
     a = weights.draw(M.param_specs(cfg), 11, "cpu")
