@@ -10,10 +10,10 @@ asks for.  ``--trace 1`` reports the cell's per-layer metrics (a
 ``torch.profiler`` trace of the mix's ``trace_window``) instead of its
 end-to-end ones.  The last line of standard output is one JSON object;
 the numbers that decide ``correct`` end standard error, each beside its
-limit.  Exit codes: 0 a result was printed; 2 bad arguments or files,
-or a configuration that its plain reference does not cover (decided
-before set-up); 3 no CUDA device, or too few; 4 JAX or the JAX package
-was loaded.
+limit or floor.  Exit codes: 0 a result was printed; 2 bad arguments or
+files, or a configuration whose sizes, as the program runs them, its
+plain reference does not cover (decided before set-up); 3 no CUDA
+device, or too few; 4 JAX or the JAX package was loaded.
 
 ``--control int8`` (not part of the cell) serves the port's int8 weight
 path instead of bf16: the control the limits were set against.
@@ -120,6 +120,7 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"{args.workload}: {e}", file=sys.stderr)
         return 2
+    sizes = check.sizes(config)
 
     import torch
     if not torch.cuda.is_available() \
@@ -153,7 +154,7 @@ def main(argv=None) -> int:
     dtype = getattr(torch, config["dtype"])
     numbers.update(check.judge(
         run, items, lambda tok: reference.kv_cache(
-            config["model"], cell.params, tok, dtype=dtype)))
+            sizes, cell.params, tok, dtype=dtype)))
     correct, shown = check.verdict(numbers)
 
     found = forbidden_modules()
@@ -193,11 +194,13 @@ def main(argv=None) -> int:
                                 key=lambda e: -e.wall_s)[:8]],
             "kv_slot_err": numbers["kv_slot_err"],
             "kv_layers": numbers["kv_layers"],
+            "judged_layers": numbers["judged_layers"],
             "window_close_late_s": run["t_close"] - run["end"]}
     print(json.dumps({"info": info}), file=sys.stderr)
     out["checks"] = shown
     for k, (v, lim) in shown.items():
-        print(f"{k} {v} limit {lim}", file=sys.stderr)
+        bound = "at least" if k in check.FLOORS else "limit"
+        print(f"{k} {v} {bound} {lim}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(out))
     return 0

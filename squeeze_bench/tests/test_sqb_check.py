@@ -27,8 +27,9 @@ def run_cell(mix_name, seed=3, control=None, seconds=1.6):
     numbers = check.bookkeeping(run)
     items = check.collect(run)
     params = run["cell"].params
+    model = check.sizes(cfg)
     numbers.update(check.judge(run, items, lambda tok: reference.kv_cache(
-        cfg["model"], params, tok, dtype=torch.bfloat16)))
+        model, params, tok, dtype=torch.bfloat16)))
     return check.verdict(numbers), numbers, run
 
 
@@ -44,10 +45,11 @@ def test_the_picked_reference_judges_bit_equal_to_the_dense_one():
     items = check.collect(run)
     params = run["cell"].params
     picked = check.reference(cfg)
+    model = check.sizes(cfg)
     via_pick = check.judge(run, items, lambda tok: picked.kv_cache(
-        cfg["model"], params, tok, dtype=torch.bfloat16))
+        model, params, tok, dtype=torch.bfloat16))
     direct = check.judge(run, items, lambda tok: decoder.kv_cache(
-        cfg["model"], params, tok, dtype=torch.bfloat16))
+        model, params, tok, dtype=torch.bfloat16))
     assert picked is decoder
     assert via_pick["rows_judged"] >= 1
     assert via_pick == direct
@@ -73,18 +75,76 @@ def test_state_left_unchanged_is_caught(monkeypatch):
     assert not ok and numbers["kv_head_err"] > LIMITS["kv_head_err"]
 
 
-def test_half_the_batch_left_out_is_caught(monkeypatch):
-    real = M.decode_step
+class LeftOut:
+    """A decode step that leaves out one half of the rows, with the mean of
+    the other half's logits in their place.  It records the (row, function,
+    position) slots that the step did write, and holds the window open
+    until a row bound to an invocation has a decode slot that no step
+    wrote: only rows bound at the close are judged, and at some closes of
+    the small window none of them lies in the half left out."""
 
-    def half(cfg, params, tokens, positions, caches):
-        h = max(1, tokens.shape[0] // 2)
-        part = M.cache_axis_map(caches, lambda x, ax: x.narrow(ax, 0, h))
-        logits, _ = real(cfg, params, tokens[:h], positions[:h], part)
-        return torch.cat([logits, logits.mean(0, keepdim=True).expand(
-            tokens.shape[0] - h, -1)]), caches
-    monkeypatch.setattr(M, "decode_step", half)
+    def __init__(self, monkeypatch, upper: bool):
+        from repro_torch.serving.engine import ServeEngine
+        real_step, real_decode = M.decode_step, ServeEngine._decode
+        real_run = harness.Runner.run
+        self.written: set = set()
+        self.engine = None
+        self.bound = False
+
+        def decode(eng):
+            self.engine = eng
+            real_decode(eng)
+
+        def step(cfg, params, tokens, positions, caches):
+            b = tokens.shape[0]
+            if upper:
+                lo, h = 0, max(1, b // 2)
+            else:
+                lo, h = b // 2, b - b // 2
+            part = M.cache_axis_map(caches, lambda x, ax: x.narrow(ax, lo, h))
+            logits, _ = real_step(cfg, params, tokens[lo:lo + h],
+                                  positions[lo:lo + h], part)
+            rest = logits.mean(0, keepdim=True).expand(b - h, -1)
+            self._wrote(range(lo, lo + h), positions)
+            return torch.cat([logits, rest] if upper else [rest, logits]), \
+                caches
+
+        def run(runner, until, arrivals=None, stop=None, trace_at=None):
+            real_run(runner, until, arrivals, stop, trace_at)
+            if stop is None:            # the window, not the first starts
+                cap = runner.cell.clock() + 30.0
+                real_run(runner, float("inf"), arrivals, stop=lambda: (
+                    self.unwritten() or runner.cell.clock() > cap))
+                self.bound = self.unwritten()
+
+        monkeypatch.setattr(ServeEngine, "_decode", decode)
+        monkeypatch.setattr(M, "decode_step", step)
+        monkeypatch.setattr(harness.Runner, "run", run)
+
+    def _wrote(self, rows, positions) -> None:
+        bound = self.engine._row_req if self.engine is not None else {}
+        for row in rows:
+            if row in bound:
+                self.written.add((row, bound[row].profile.name,
+                                  int(positions[row])))
+
+    def unwritten(self) -> bool:
+        """A row bound now holds a decode slot that no step wrote."""
+        return any((row, req.profile.name, pos) not in self.written
+                   for row, req in self.engine._row_req.items()
+                   for pos in range(req.profile.prompt_tokens, req.position))
+
+
+def test_half_the_batch_left_out_is_caught(monkeypatch):
+    fault = LeftOut(monkeypatch, upper=True)
     (ok, shown), _, _ = run_cell("saturated")
-    assert not ok
+    assert fault.bound and not ok
+
+
+def test_lower_half_of_the_batch_left_out_is_caught(monkeypatch):
+    fault = LeftOut(monkeypatch, upper=False)
+    (ok, shown), _, _ = run_cell("saturated")
+    assert fault.bound and not ok
 
 
 @pytest.mark.parametrize("mix", ["burst_snapshot", "saturated"])

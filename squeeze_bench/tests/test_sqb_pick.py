@@ -87,8 +87,15 @@ EXPERTS = dict(json.loads(QWEN.read_text())["model"], num_experts=8,
 @pytest.mark.parametrize("config,reason", [
     (_config(model=EXPERTS), "does not cover this configuration's model: "
      "this reference is the dense block"),
-    (_config(reference="moe"), "no reference module 'moe'"),
+    # a name that picks no module (the id is the one the case had when no
+    # module answered to "moe")
+    pytest.param(_config(reference="moe_nowhere"),
+                 "no reference module 'moe_nowhere'",
+                 id="config1-no reference module 'moe'"),
     (_config(reference="reference/moe"), "not the bare name"),
+    pytest.param(_config(reference="moe"), "reference 'moe' does not cover "
+                 "this configuration's model: this reference is the "
+                 "sparse-expert block", id="moe refuses a dense model"),
 ])
 def test_run_refuses_before_it_looks_for_a_card(tmp_path, config, reason):
     """Exit 2 with one line on standard error and nothing on standard
