@@ -112,7 +112,7 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import merge_partials  # noqa: E402
 from repro_torch.models.layers import (materialize,  # noqa: E402
-                                       tree_leaves, tree_map)
+                                       rope_freqs, tree_leaves, tree_map)
 from repro_torch.sharding import (DP_ONLY_TRAIN_RULES,  # noqa: E402
                                   current_ctx, distribute, is_dtensor,
                                   named_sharding, sharding_ctx,
@@ -769,6 +769,64 @@ def phase_kv_compact(cfg, gen) -> dict:
     return row
 
 
+def phase_decode_qkv_rope(cfg) -> dict:
+    """``decode_qkv_rope`` at the saturated cell's shapes: 64 rows of
+    qwen2-7b's projections with their biases, rows of 2,048 slots, one
+    block's cache; bit-equal to its plain version on the card (q and both
+    caches), every slot but the written ones unchanged.  Its own generator,
+    so that the later phases draw what they drew."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    p, t, hkv, dh = 64, PARTITION_TOKENS, cfg.num_kv_heads, cfg.head_dim
+    hq = cfg.num_heads
+    bf16 = torch.bfloat16
+    q, k, v = (randn((p, n * dh), bf16, gen) for n in (hq, hkv, hkv))
+    bq, bk, bv = (randn((n * dh,), bf16, gen) for n in (hq, hkv, hkv))
+    kc, vc = (randn((p, t, hkv, dh), bf16, gen) for _ in range(2))
+    pos = torch.randint(-1, 3 * t, (p,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    freqs = rope_freqs(dh, cfg.rope_theta, DEV)
+    kp, vp, k0, v0 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    args = (q, k, v, bq, bk, bv, pos, freqs)
+    got = ops.decode_qkv_rope(*args, kc, vc)
+    want = ref.decode_qkv_rope(*args, kp, vp)
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x.view(torch.int16)
+    written = torch.zeros((p, t), dtype=torch.bool, device=DEV)
+    written[torch.arange(p, device=DEV), torch.remainder(pos.long(), t)] \
+        = True
+    check(torch.equal(bits(got), bits(want)),
+          "decode_qkv_rope q bit-exact against its plain version")
+    check(torch.equal(bits(kc), bits(kp)) and torch.equal(bits(vc),
+                                                          bits(vp)),
+          "decode_qkv_rope caches bit-exact against its plain version")
+    check(torch.equal(bits(kc[~written]), bits(k0[~written]))
+          and torch.equal(bits(vc[~written]), bits(v0[~written])),
+          "decode_qkv_rope left every other slot unchanged")
+    del kp, vp, k0, v0
+    item = 2
+    nbytes = item * (2 * p * hq * dh + 4 * p * hkv * dh
+                     + (hq + 2 * hkv) * dh) + 4 * p + 4 * dh // 2
+    flops = p * (hq + 2 * hkv) * dh + 7.0 * p * (hq + hkv) * dh // 2
+    bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
+    row = {"name": "decode_qkv_rope", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/decode_qkv_rope.cu",
+           "replaces": "none: the bias adds, RoPE and cache write of "
+                       "src/repro/models/attention.py, which XLA fuses",
+           "path": "engine", "max_abs_err": 0.0,
+           "ms": median_ms(lambda: ops.decode_qkv_rope(*args, kc, vc)),
+           "plain_ms": median_ms(lambda: ref.decode_qkv_rope(*args, kc,
+                                                             vc)),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": None}
+    emit({"phase": "kernel", "shape": [p, t, hq, hkv, dh], "dtype": "bf16",
+          "bytes": nbytes, "flops": flops,
+          "library": "none: no single PyTorch call computes it", **row})
+    return row
+
+
 def phase_snapshot(cfg, gen, tag: str = "") -> list[dict]:
     """The two snapshot kernels over the model's full 8 x 2048 cache tree,
     filled with random bytes.  ``tag`` names the kernel line's rows
@@ -1157,6 +1215,8 @@ def phase_engine(cfg, gen) -> tuple[dict, dict, dict]:
             and snap_ev[0].detail["bytes"] == row_bytes,
         "partition_attention launches == decode steps x layers":
             launches["partition_attention"] == decode_steps * cfg.num_layers,
+        "decode_qkv_rope launches == decode steps x layers":
+            launches["decode_qkv_rope"] == decode_steps * cfg.num_layers,
         "capture launches == snapshot events": launches["snapshot_capture"]
         == captures > 0,
         "restore launches == restore events": launches["snapshot_restore"]
@@ -3506,6 +3566,7 @@ def main(argv: list[str]) -> None:
     gen.manual_seed(0)
     rows = [phase_attention(cfg, gen), phase_paged_attention(cfg, gen),
             phase_kv_compact(cfg, gen)] + phase_snapshot(cfg, gen)
+    rows.append(phase_decode_qkv_rope(cfg))
     torch.cuda.empty_cache()
     seconds = {"kernels": time.perf_counter() - t0}
 

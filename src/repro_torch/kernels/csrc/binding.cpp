@@ -1,9 +1,10 @@
 // Python binding of the port's CUDA kernels (partition_attention.cu,
-// paged_attention.cu, kv_snapshot.cu, kv_compact.cu), built with
+// paged_attention.cu, kv_snapshot.cu, kv_compact.cu, decode_qkv_rope.cu),
+// built with
 // torch.utils.cpp_extension.load.  This is the one source that includes
 // torch's headers; the kernels' own sources see only the CUDA runtime.  The
 // Python wrappers (kernels/partition_attention.py, paged_attention.py,
-// kv_snapshot.py, kv_compact.py) check devices, dtypes, shapes and alignment
+// kv_snapshot.py, kv_compact.py, decode_qkv_rope.py) check devices, dtypes, shapes and alignment
 // and pass the current stream; here each entry point hands the tensors'
 // pointers to its launcher and raises if the launch was refused.
 #include <torch/extension.h>
@@ -31,6 +32,12 @@ int kv_compact(const void* const* ptrs, const long long* block_bytes,
                int n_leaves, const void* moves, int n_moves, int unit_bytes,
                void* stream);
 int kv_compact_prepare();
+int decode_qkv_rope(const void* q, const void* k, const void* v,
+                    const void* bq, const void* bk, const void* bv,
+                    const void* positions, const void* freqs, void* k_cache,
+                    void* v_cache, void* q_out, int p, int hq, int hkv,
+                    int dh, int t, int is_bf16, void* stream);
+int decode_qkv_rope_prepare();
 
 namespace {
 
@@ -101,12 +108,35 @@ void compact(const std::vector<torch::Tensor>& pools,
         "kv_compact launch");
 }
 
+// q (P, Hq * Dh), k/v (P, Hkv * Dh), biases (H * Dh) or empty, positions
+// (P,) int32, freqs (Dh / 2,) f32, k/v_cache (P, t, Hkv, Dh), out like q
+void qkv_rope(const torch::Tensor& q, const torch::Tensor& k,
+              const torch::Tensor& v, const torch::Tensor& bq,
+              const torch::Tensor& bk, const torch::Tensor& bv,
+              const torch::Tensor& positions, const torch::Tensor& freqs,
+              const torch::Tensor& k_cache, const torch::Tensor& v_cache,
+              const torch::Tensor& out, int64_t stream) {
+  auto ptr = [](const torch::Tensor& x) -> const void* {
+    return x.numel() ? x.data_ptr() : nullptr;
+  };
+  check(decode_qkv_rope(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(bq), ptr(bk),
+            ptr(bv), positions.data_ptr(), freqs.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            k_cache.size(0), q.size(1) / k_cache.size(3), k_cache.size(2),
+            k_cache.size(3), k_cache.size(1),
+            q.scalar_type() == torch::kBFloat16,
+            reinterpret_cast<void*>(stream)),
+        "decode_qkv_rope launch");
+}
+
 // loads every kernel's code onto the current device without launching it
 void prepare() {
   check(partition_attention_prepare(), "loading partition_attention");
   check(paged_attention_prepare(), "loading paged_attention");
   check(snapshot_prepare(), "loading the snapshot kernels");
   check(kv_compact_prepare(), "loading kv_compact");
+  check(decode_qkv_rope_prepare(), "loading decode_qkv_rope");
 }
 
 }  // namespace
@@ -116,5 +146,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("paged_attention", &paged);
   m.def("snapshot_copy", &snapshot);
   m.def("kv_compact", &compact);
+  m.def("decode_qkv_rope", &qkv_rope);
   m.def("prepare", &prepare);
 }

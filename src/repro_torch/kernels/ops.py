@@ -10,11 +10,12 @@ wrapper adds one to its entry of ``LAUNCHES`` where it launches its kernel,
 and nowhere else, so a run can show that it went through the kernels.
 
 Kernels are built at first use by ``torch.utils.cpp_extension.load`` from
-``csrc/`` (the four CUDA sources, for ``sm_90a``, the header
-``decode_attention.cuh`` that the two attention sources share, and
-``binding.cpp``, the one file that includes torch's headers) into
-``build/torch_kernels/`` at the repository root; ``load`` rebuilds when a
-source or flag changes.
+``csrc/`` (the five CUDA sources, for ``sm_90a``: ``partition_attention.cu``,
+``paged_attention.cu``, ``kv_snapshot.cu``, ``kv_compact.cu`` and
+``decode_qkv_rope.cu``; the header ``decode_attention.cuh`` that the two
+attention sources share; and ``binding.cpp``, the one file that includes
+torch's headers) into ``build/torch_kernels/`` at the repository root;
+``load`` rebuilds when a source or flag changes.
 
 The two decode-attention kernels are one split-K design
 (``csrc/decode_attention.cuh``): each row's valid range is cut into slices
@@ -23,6 +24,10 @@ K/V tiles stream through a ``cp.async`` pipeline, bf16 scores and P.V run
 on the tensor cores (``mma.sync``), and the blocks of each row group, one
 thread-block cluster, merge their f32 partials through distributed shared
 memory.  One wrapper call is one launch and one count in ``LAUNCHES``.
+
+``decode_qkv_rope`` is the decode step's attention front end in one launch
+a block (``csrc/decode_qkv_rope.cu``): bias adds, RoPE and the cache write,
+rounded where torch rounds, so it gives the plain sequence's bits.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import decode_qkv_rope as _qkv
 from repro_torch.kernels import kv_compact as _kvc
 from repro_torch.kernels import kv_snapshot as _kvs
 from repro_torch.kernels import paged_attention as _paged
@@ -39,11 +45,12 @@ from repro_torch.kernels import ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("binding.cpp", "partition_attention.cu", "paged_attention.cu",
-           "kv_snapshot.cu", "kv_compact.cu")
+           "kv_snapshot.cu", "kv_compact.cu", "decode_qkv_rope.cu")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 
 LAUNCHES = {"partition_attention": 0, "paged_attention": 0,
-            "snapshot_capture": 0, "snapshot_restore": 0, "kv_compact": 0}
+            "snapshot_capture": 0, "snapshot_restore": 0, "kv_compact": 0,
+            "decode_qkv_rope": 0}
 _EXT = None
 
 
@@ -106,6 +113,22 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
     out = _paged.paged_attention(load(), q, k_pool, v_pool, tables,
                                  positions, logit_cap=logit_cap, scale=scale)
     LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def decode_qkv_rope(q, k, v, bq, bk, bv, positions, freqs, k_cache,
+                    v_cache):
+    """One attention block's decode front end: q (P, Hq*Dh), k and v (P,
+    Hkv*Dh) the projections before their biases (``bq``, ``bk``, ``bv``,
+    or None), RoPE at ``positions`` (P,) int32 with ``freqs`` (Dh/2,) f32,
+    and k, v written into slot ``positions mod t`` of every row of k/v_cache
+    (P, t, Hkv, Dh), in place.  Returns q rotated, (P, Hkv, G, Dh)."""
+    if q.device.type != "cuda":
+        return ref.decode_qkv_rope(q, k, v, bq, bk, bv, positions, freqs,
+                                   k_cache, v_cache)
+    out = _qkv.decode_qkv_rope(load(), q, k, v, bq, bk, bv, positions,
+                               freqs, k_cache, v_cache)
+    LAUNCHES["decode_qkv_rope"] += 1
     return out
 
 

@@ -70,8 +70,14 @@ def splits_for(q, n_max: int) -> int:
     return splits
 
 
+def head_dim_fits(dh: int) -> bool:
+    """The head dims the port's decode kernels take: multiples of 16 (the
+    mma's depth) in [16, 256]."""
+    return dh % 16 == 0 and 16 <= dh <= 256
+
+
 def check_head_dim(dh: int) -> None:
-    if dh % 16 or not 16 <= dh <= 256:
+    if not head_dim_fits(dh):
         raise ValueError(f"head_dim {dh} must be a multiple of 16 in "
                          f"[16, 256] (the mma's depth)")
 

@@ -2,7 +2,11 @@
 wrapper in ``ops`` and the oracle each CUDA kernel is held against on the
 card.  They follow ``repro.kernels.ref`` line by line, except that
 ``snapshot_restore`` and ``kv_compact`` write in place (the kernels alias
-their operands the way the Pallas kernels' ``input_output_aliases`` do)."""
+their operands the way the Pallas kernels' ``input_output_aliases`` do).
+``decode_qkv_rope`` has no counterpart there: it is the sequence that
+``models.attention`` ran before its kernel, moved here as it was, with
+``rotate``, the rotary embedding's arithmetic that ``models.layers.
+apply_rope`` shares."""
 from __future__ import annotations
 
 import torch
@@ -83,6 +87,42 @@ def paged_attention(q, k_pool, v_pool, tables, positions, *,
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", w.to(v_rows.dtype), v_rows)
+
+
+def rotate(x, angles):
+    """The rotary embedding of x (B, S, H, D) by ``angles`` (B, S, D/2) f32:
+    the halves (x1, x2) become (x1 cos - x2 sin, x2 cos + x1 sin) in f32,
+    rounded to x's dtype (``models.layers.apply_rope``)."""
+    d2 = x.shape[-1] // 2
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :d2].to(f32), x[..., d2:].to(f32)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def decode_qkv_rope(q, k, v, bq, bk, bv, positions, freqs, k_cache,
+                    v_cache):
+    """The front end of one attention block's decode step: the bias adds
+    (where ``bq``, ``bk``, ``bv`` are not None), the rotary embedding of q
+    and k at ``positions`` (P,) with ``freqs`` (Dh/2,) f32 (``models.
+    layers.apply_rope``'s), and the write of k and v into every
+    row's slot ``positions mod t`` (floor modulo) of k/v_cache (P, t, Hkv,
+    Dh), in place.  q (P, Hq*Dh), k and v (P, Hkv*Dh).  Returns q as (P,
+    Hkv, G, Dh)."""
+    p, t, hkv, dh = k_cache.shape
+    hq = q.shape[-1] // dh
+    q, k, v = (x if b is None else x + b
+               for x, b in ((q, bq), (k, bk), (v, bv)))
+    angles = positions[:, None, None].to(f32) * freqs         # (P, 1, D/2)
+    q = rotate(q.reshape(p, 1, hq, dh), angles)
+    k = rotate(k.reshape(p, 1, hkv, dh), angles)
+    # torch.remainder is a floor modulo, like jnp's %
+    slot = torch.remainder(positions.long(), t)
+    rows = torch.arange(p, device=k_cache.device)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v.reshape(p, hkv, dh).to(v_cache.dtype)
+    return q.reshape(p, hkv, hq // hkv, dh)
 
 
 def kv_compact(pool, src, dst, count):

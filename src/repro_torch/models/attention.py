@@ -12,11 +12,14 @@ cache tensors, decode writes the new K/V slot into them) and the same cache
 dict is returned: the engine owns one copy of the arena and never pays a
 second one per step.  Decode attention runs through
 ``kernels.ops.partition_attention`` — the hand-written kernel on the card,
-its plain version on the CPU and on meta tensors.  Train and prefill at or
-above ``FLASH_SEQ`` tokens take ``_chunked_attention``, an online softmax
-over ``Q_CHUNK`` x ``KV_CHUNK`` tiles that never builds an S x S score
-matrix (plain torch, as the JAX package's is pure jnp), except under
-``tracemode.analysis_mode``, which counts the plain path.
+its plain version on the CPU and on meta tensors.  Before it, a decode
+block over a whole ring adds its q/k/v biases, rotates q and k and writes
+the new K/V slot in one ``kernels.ops.decode_qkv_rope`` (``fused_decode``
+says where), which rounds where the separate operations round.  Train
+and prefill at or above ``FLASH_SEQ`` tokens take ``_chunked_attention``,
+an online softmax over ``Q_CHUNK`` x ``KV_CHUNK`` tiles that never builds
+an S x S score matrix (plain torch, as the JAX package's is pure jnp),
+except under ``tracemode.analysis_mode``, which counts the plain path.
 
 On a mesh the serving rules split each cache on "kv_seq".  Prefill and
 decode then run per rank on the rank's block (``sharding.local_blocks``):
@@ -32,9 +35,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.partition_attention import head_dim_fits
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, dense_to_stream, f32,
-                                       softcap)
+                                       rope_freqs, softcap)
 from repro_torch.sharding import (P, block_start, current_ctx, entry_axes,
                                   is_dtensor, local_blocks, psum, shard,
                                   spec_for, split_last)
@@ -148,22 +152,59 @@ def grouped_attention(core, q, k, v, *rows):
         P(ks[0], None, ks[2]))
 
 
+def fused_decode(cfg, p, x, mode: str, cache) -> bool:
+    """Whether this block's decode step takes ``ops.decode_qkv_rope``, one
+    kernel for the bias adds, RoPE and the cache write: in decode, over a
+    whole ring (no sharding context, so no "kv_seq" block), with plain
+    RoPE (no M-RoPE sections), activations, projections' outputs, biases
+    and caches of one dtype, bf16 or f32, and a head dim the kernel takes.
+    Elsewhere the block runs those as separate operations."""
+    if mode != "decode" or cache is None or cfg.mrope_sections \
+            or current_ctx() is not None or not head_dim_fits(cfg.head_dim):
+        return False
+    dt = x.dtype
+    proj = [p[n] for n in "qkv"]
+    # an int8 weight is dequantised to the activations' dtype
+    return dt in (torch.bfloat16, torch.float32) \
+        and all(d["w"].dtype in (dt, torch.int8) for d in proj) \
+        and all(d["b"].dtype == dt for d in proj if "b" in d) \
+        and cache["k"].dtype == cache["v"].dtype == dt
+
+
 def attention(cfg, p, x, *, positions, mode: str, cache=None,
               window: int = 0):
     """Returns (y, cache).  ``positions``: (B,S) [or (3,B,S) M-RoPE] int32
     for train/prefill; (B,) [or (3,B)] global positions for decode.
     ``cache`` is updated in place.  Spans (``repro_torch.spans``):
-    ``attn.qkv`` (projections and RoPE), ``attn.core`` (the attention and
-    the cache write), ``attn.out`` (the output projection)."""
+    ``attn.qkv`` (projections and RoPE; with ``fused`` true the cache write
+    too, all in one kernel after the projections: ``fused_decode``),
+    ``attn.core`` (the attention, and else the cache write), ``attn.out``
+    (the output projection)."""
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = hq // hkv
     scale = cfg.query_scale or dh ** -0.5
     cap = cfg.attn_logit_softcap
     b, s = x.shape[:2]
 
+    if fused_decode(cfg, p, x, mode, cache):
+        with span("attn.qkv", fused=True):
+            q, k, v = (dense(p[n], x, bias=False)[:, 0] for n in "qkv")
+            pos = positions.to(torch.int32)
+            q = ops.decode_qkv_rope(
+                q, k, v, *(p[n].get("b") for n in "qkv"), pos,
+                rope_freqs(dh, cfg.rope_theta, x.device), cache["k"],
+                cache["v"])
+        with span("attn.core"):
+            out = ops.partition_attention(q, cache["k"], cache["v"], pos,
+                                          window=window, logit_cap=cap,
+                                          scale=scale)
+        with span("attn.out"):
+            return dense_to_stream(p["o"], out.reshape(b, 1, hq * dh),
+                                   mode), cache
+
     rope_pos = positions if mode != "decode" else (
         positions[..., None])  # (B,1) / (3,B,1)
-    with span("attn.qkv"):
+    with span("attn.qkv", fused=False):
         q = split_last(dense(p["q"], x), hq, dh)
         k = split_last(dense(p["k"], x), hkv, dh)
         v = split_last(dense(p["v"], x), hkv, dh)

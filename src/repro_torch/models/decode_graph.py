@@ -1,9 +1,10 @@
 """The decode step of one engine, replayed from a CUDA graph.
 
-A decode step launches some 80 device operations a block (2,254 for
-qwen2-7b's 28 blocks), each a few microseconds of device work behind tens of
-microseconds of Python, so an eager step keeps the card idle most of the
-time.  ``DecodeGraph`` captures ``model.decode_step`` once for a given arena
+A decode step launches some 30 device operations a block (910 for
+qwen2-7b's 28 blocks; some 80 before the attention front end became one
+kernel, ``ops.decode_qkv_rope``), each a few microseconds of device work
+behind tens of microseconds of Python, so an eager step keeps the card idle
+most of the time.  ``DecodeGraph`` captures ``model.decode_step`` once for a given arena
 and replays it: the same kernels, on the same inputs, in the same order,
 from one launch.
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
@@ -19,6 +20,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import rotate
 from repro_torch.sharding import (P, block_start, current_ctx, distribute,
                                   entry_axes, gather_weight, is_dtensor,
                                   local_blocks, named_sharding, psum, shard,
@@ -215,7 +217,9 @@ def dense_spec(d_in: int, d_out: int, axes, *, bias=False):
     return out
 
 
-def dense(p, x: torch.Tensor) -> torch.Tensor:
+def dense(p, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+    """``x @ w``, plus the bias where ``p`` has one and ``bias`` is set
+    (``models.attention``'s decode kernel adds its own)."""
     w = gather_weight(p["w"], x)
     if w.dtype == torch.int8:
         w = w.to(x.dtype) * p["qscale"].to(x.dtype)
@@ -223,7 +227,7 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
         t = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(t), w.to(t)
     y = x @ w
-    if "b" in p:
+    if bias and "b" in p:
         # a contraction over a split dim leaves partial sums: sum them
         # before the bias is added once
         y = sum_partials(y) + p["b"]
@@ -293,6 +297,19 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``_rope_freqs`` computed once for each head dim, theta and device:
+    the bits of ``apply_rope``'s, for the decode kernel to read.  A first
+    call must come before any graph capture, which runs nothing and would
+    leave the tensor without its values (a decode graph captures only after
+    an eager step)."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("rope frequencies first asked for in a capture")
+    return _rope_freqs(head_dim, theta, device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
     """x: (B, S, H, D).  positions: (B, S) or (3, B, S) for M-RoPE."""
@@ -309,11 +326,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         angles = torch.cat(sec, dim=-1)                        # (B, S, D/2)
     else:
         angles = positions[..., None].to(f32) * freqs          # (B, S, D/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x[..., :d2].to(f32), x[..., d2:].to(f32)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
-                     dim=-1).to(x.dtype)
+    return rotate(x, angles)
 
 
 # ---------------------------------------------------------------------------

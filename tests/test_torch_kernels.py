@@ -251,16 +251,21 @@ def test_expected_row_bytes_and_cost_models():
     assert roofline.bound_seconds(1.0, 989e12) == (1.0, "operations")
 
 
-def test_snapshot_stats_counters():
-    """The port counts the snapshot kernels' launches in ``ops.LAUNCHES``
-    alone: the JAX package's ``STATS`` transfer counters are not kept (the
-    engine's events carry the bytes)."""
+@pytest.mark.parametrize("keys", [("snapshot_capture", "snapshot_restore"),
+                                  ("decode_qkv_rope",)],
+                         ids=["snapshot", "decode_qkv_rope"])
+def test_snapshot_stats_counters(keys):
+    """The port counts the kernels' launches in ``ops.LAUNCHES`` alone
+    (the snapshot kernels' and the decode front end's), and
+    ``reset_launches`` clears every count: the JAX package's ``STATS``
+    transfer counters are not kept (the engine's events carry the
+    bytes)."""
     assert not hasattr(kv_snapshot, "STATS")
-    ops.LAUNCHES["snapshot_capture"] += 1
-    ops.LAUNCHES["snapshot_restore"] += 2
+    assert set(keys) <= set(ops.LAUNCHES)
+    for n, key in enumerate(keys, 1):
+        ops.LAUNCHES[key] += n
     ops.reset_launches()
     assert ops.LAUNCHES == dict.fromkeys(ops.LAUNCHES, 0)
-    assert {"snapshot_capture", "snapshot_restore"} <= set(ops.LAUNCHES)
 
 
 def test_cpu_wrappers_do_not_count_launches():
