@@ -149,20 +149,32 @@ class ElasticArena:
     growth is a *request* — ``grant(units)`` returns how many units the
     host actually concedes — and every unit this arena drops flows back
     through ``release``.  Without them the arena resizes unilaterally.
+
+    ``start`` is the arena's first size in partitions (by default all of
+    ``spec``'s).
     """
 
     MOVE_CAPACITY = 256      # padded migration vector (the JAX package's)
 
     def __init__(self, cfg, spec: ArenaSpec, mode: str, caches=None,
-                 seed: int = 0, grant=None, release=None):
+                 seed: int = 0, grant=None, release=None,
+                 start: Optional[int] = None):
         self.cfg = cfg
         self.spec = spec
         self.mode = mode
         self.caches = caches
-        if mode == "vanilla":
-            self.manager = VanillaPagedManager(spec, seed=seed)
+        if mode != "vanilla":
+            self.manager = HotMemManager(spec, plugged=start)
         else:
-            self.manager = HotMemManager(spec)
+            self.manager = VanillaPagedManager(spec, seed=seed)
+            if start is not None:
+                # the reference's engine shuffles the full pool, then the
+                # start pool again with the same advanced ``Random``: which
+                # blocks a shrink migrates depends on both shuffles
+                m = self.manager
+                m.pool_blocks = start * spec.blocks_per_partition
+                m._free = list(range(m.pool_blocks))
+                m._rng.shuffle(m._free)
         self._grant: Optional[Callable[[int], int]] = grant
         self._release: Optional[Callable[[int], None]] = release
         self.plug_seconds: list[float] = []

@@ -6,7 +6,8 @@ their operands the way the Pallas kernels' ``input_output_aliases`` do).
 ``decode_qkv_rope`` has no counterpart there: it is the sequence that
 ``models.attention`` ran before its kernel, moved here as it was, with
 ``rotate``, the rotary embedding's arithmetic that ``models.layers.
-apply_rope`` shares."""
+apply_rope`` shares, and ``write_ring_slots``, the decode step's K/V write
+that ``models.attention`` shares."""
 from __future__ import annotations
 
 import torch
@@ -117,12 +118,29 @@ def decode_qkv_rope(q, k, v, bq, bk, bv, positions, freqs, k_cache,
     angles = positions[:, None, None].to(f32) * freqs         # (P, 1, D/2)
     q = rotate(q.reshape(p, 1, hq, dh), angles)
     k = rotate(k.reshape(p, 1, hkv, dh), angles)
-    # torch.remainder is a floor modulo, like jnp's %
-    slot = torch.remainder(positions.long(), t)
-    rows = torch.arange(p, device=k_cache.device)
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v.reshape(p, hkv, dh).to(v_cache.dtype)
+    write_ring_slots(k_cache, v_cache, k[:, 0], v.reshape(p, hkv, dh),
+                     positions, t=t)
     return q.reshape(p, hkv, hq // hkv, dh)
+
+
+def write_ring_slots(kc, vc, k, v, positions, *, t: int, off: int = 0):
+    """Write each row's new k and v (P, Hkv, Dh), cast to the caches'
+    dtype, into its ring slot ``positions mod t`` (P,) of kc/vc (P, T, Hkv,
+    Dh), in place.  The caches may be a block of the ring, slots [off, off
+    + T) of ``t``: a row whose slot lies outside the block keeps its
+    bytes."""
+    tb = kc.shape[1]
+    # torch.remainder is a floor modulo, like jnp's %
+    slot = torch.remainder(positions.long(), t) - off
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for c, new in ((kc, k), (vc, v)):
+        new = new.to(c.dtype)
+        if tb == t:
+            c[rows, slot] = new
+        else:
+            mine = ((slot >= 0) & (slot < tb))[:, None, None]
+            idx = slot.clamp(0, tb - 1)
+            c[rows, idx] = torch.where(mine, new, c[rows, idx])
 
 
 def kv_compact(pool, src, dst, count):

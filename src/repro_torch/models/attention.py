@@ -36,6 +36,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.partition_attention import head_dim_fits
+from repro_torch.kernels.ref import write_ring_slots
 from repro_torch.models.layers import (ParamSpec, apply_rope, bf16, dense,
                                        dense_spec, dense_to_stream, f32,
                                        rope_freqs, softcap)
@@ -295,18 +296,8 @@ def _decode_block(qg, kn, vn, kc, vc, pos, *, t: int, axes, window, scale,
     decode attention."""
     ctx = current_ctx()
     ranks = ctx.axis_size(axes) if axes else 1
-    tb = kc.shape[1]
-    off = block_start(axes, tb)
-    slot = torch.remainder(pos.long(), t) - off
-    rows = torch.arange(kc.shape[0], device=kc.device)
-    for c, new in ((kc, kn), (vc, vn)):
-        new = new.to(c.dtype)
-        if tb == t:
-            c[rows, slot] = new
-        else:                     # rows whose slot another rank holds
-            mine = ((slot >= 0) & (slot < tb))[:, None, None]
-            idx = slot.clamp(0, tb - 1)
-            c[rows, idx] = torch.where(mine, new, c[rows, idx])
+    off = block_start(axes, kc.shape[1])
+    write_ring_slots(kc, vc, kn, vn, pos, t=t, off=off)
     kw = dict(window=window, logit_cap=cap, scale=scale)
     if ranks == 1:
         return ops.partition_attention(qg, kc, vc, pos.to(torch.int32), **kw)

@@ -22,7 +22,10 @@ caches, so an unplug frees the dropped rows at once.
 Where the step can be captured as it stands (``eligible``): on a CUDA
 device, with no sharding context (the mesh path's collectives stay eager),
 and every block an attention block of a decoder-only model (the recurrent
-blocks and the encoder-decoder family stay eager).
+blocks and the encoder-decoder family stay eager).  Elsewhere every step
+runs eagerly from the same loaded buffers.  So ``DecodeGraph`` is how an
+engine runs each of its decode steps, captured or not; the class keeps the
+name of what it adds to an eager step, the graph.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import functools
 
 import torch
 
+from repro_torch.core.elastic import sync
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models import transformer
@@ -62,8 +66,9 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class DecodeGraph:
-    """The captured decode step of one engine: at most one graph, for the
-    key of its caches, and the static device buffers of its inputs."""
+    """The decode step of one engine: the static device buffers of its
+    inputs and, where the step can be captured, at most one graph, for the
+    key of its caches."""
 
     def __init__(self, cfg, params, device):
         self.cfg, self.params = cfg, params
@@ -83,14 +88,25 @@ class DecodeGraph:
         self.tokens.copy_(tokens)
         self.positions.copy_(positions)
 
+    def warm(self, partition_tokens: int) -> None:
+        """One throw-away eager step on a fresh one-row cache of
+        ``partition_tokens`` slots, so that the first timed step pays no
+        library initialisation on the device."""
+        caches = M.init_caches(self.cfg, 1, partition_tokens,
+                               device=self.device)
+        toks = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+        pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        M.decode_step(self.cfg, self.params, toks, pos, caches)
+        sync(caches)
+
     def step(self, caches) -> str:
         """One decode step over ``caches`` (updated in place) from the
-        loaded inputs: ``"eager"`` for the first step of a new key,
-        ``"capture"`` for the second, ``"replay"`` after."""
-        key = cache_key(caches)
-        if key != self.key:
-            self.graph = None
-            self.key = key
+        loaded inputs: ``"eager"`` where the step cannot be captured
+        (``eligible``) and for the first step of a new key, ``"capture"``
+        for the second, ``"replay"`` after."""
+        key = cache_key(caches) if eligible(self.cfg, self.device) else None
+        if key is None or key != self.key:
+            self.graph, self.key = None, key
             M.decode_step(self.cfg, self.params, self.tokens, self.positions,
                           caches)
             return "eager"

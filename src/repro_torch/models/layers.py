@@ -292,29 +292,25 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=f32,
-                                         device=device) / head_dim))
-
-
 @functools.lru_cache(maxsize=None)
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
-    """``_rope_freqs`` computed once for each head dim, theta and device:
-    the bits of ``apply_rope``'s, for the decode kernel to read.  A first
-    call must come before any graph capture, which runs nothing and would
-    leave the tensor without its values (a decode graph captures only after
-    an eager step)."""
+    """The rotary frequencies (D/2,) f32, computed once for each head dim,
+    theta and device, for ``apply_rope`` and the decode kernel to read.  A
+    first call must come before any graph capture, which runs nothing and
+    would leave the tensor without its values (a decode graph captures only
+    after an eager step with the same key)."""
     if torch.device(device).type == "cuda" \
             and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("rope frequencies first asked for in a capture")
-    return _rope_freqs(head_dim, theta, device)
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=f32,
+                                         device=device) / head_dim))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: tuple[int, ...] = ()) -> torch.Tensor:
     """x: (B, S, H, D).  positions: (B, S) or (3, B, S) for M-RoPE."""
     d2 = x.shape[-1] // 2
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (D/2,)
     if mrope_sections:
         assert positions.ndim == 3, "M-RoPE needs (3, B, S) positions"
         assert sum(mrope_sections) == d2

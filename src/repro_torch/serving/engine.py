@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import heapq
 import time
 from collections import deque
 from typing import Any, Optional
@@ -69,8 +68,8 @@ from repro_torch.core.arena import ArenaSpec, ReclaimEvent
 from repro_torch.core.elastic import (ElasticArena, bucket_ladder, sync,
                                       target_bucket)
 from repro_torch.kernels import ops
-from repro_torch.models import decode_graph
 from repro_torch.models import model as M
+from repro_torch.models.decode_graph import DecodeGraph
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.serving.request import Request, State, slo_tier_of
 from repro_torch.spans import begin, span
@@ -197,17 +196,11 @@ class ServeEngine:
         self.arena = ElasticArena(
             cfg, spec, mode,
             caches=self._make_pool(start) if mode == "vanilla" else None,
-            seed=seed, grant=self._host_grant, release=self._host_release)
-        if mode != "vanilla":
-            # managers sized in partitions; ladder starts small
-            self.arena.manager.plugged = start
-            self.arena.manager._free = list(range(start))
-            heapq.heapify(self.arena.manager._free)
-        else:
-            bpp = spec.blocks_per_partition
-            self.arena.manager.pool_blocks = start * bpp
-            self.arena.manager._free = list(range(start * bpp))
-            self.arena.manager._rng.shuffle(self.arena.manager._free)
+            seed=seed, grant=self._host_grant, release=self._host_release,
+            start=start)
+        # broker blocks in one native unit of the arena's manager: a block
+        # for vanilla, a partition for hotmem and static
+        self._bpu = 1 if mode == "vanilla" else spec.blocks_per_partition
 
         # host control plane: growth is a *request* to the broker, never a
         # unilateral resize.  Standalone engines get an unmetered broker.
@@ -249,7 +242,7 @@ class ServeEngine:
         # decode steps captured into, and replayed from, a CUDA graph
         self.graph_captures = 0
         self.graph_replays = 0
-        self._graph: Optional[decode_graph.DecodeGraph] = None
+        self._graph = DecodeGraph(cfg, params, self.device)
         self._prof_tokens: dict[str, int] = {}   # profile -> prompt tokens
         # content-addressed capture (``snapshot_page_bytes`` set): offered
         # partitions split into pages keyed by content hash; ``_mapped``
@@ -265,17 +258,7 @@ class ServeEngine:
         # rid -> (request.queue, request) spans of a recorded submission
         self._req_spans: dict[str, tuple] = {}
         if prewarm and mode in ("hotmem", "vanilla"):
-            self._warm_decode()
-
-    def _warm_decode(self) -> None:
-        """One throw-away decode step on a fresh one-row cache, so the
-        first timed step pays no library initialisation on the device."""
-        caches = M.init_caches(self.cfg, 1, self.spec.partition_tokens,
-                               device=self.device)
-        toks = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
-        pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        M.decode_step(self.cfg, self.params, toks, pos, caches)
-        sync(caches)
+            self._graph.warm(spec.partition_tokens)
 
     # ------------------------------------------------------------ plumbing
     def _host_grant(self, native: int) -> int:
@@ -284,22 +267,21 @@ class ServeEngine:
         and floor the immediate portion back to native granularity.  A sync
         broker may steal inline (its stall is charged to our clock); an
         async broker leaves the deficit pending on the grant instead."""
-        bpp = self.spec.blocks_per_partition
-        want = native if self.mode == "vanilla" else native * bpp
-        g = self.broker.request_grant(self.replica_id, want)
+        g = self.broker.request_grant(self.replica_id, native * self._bpu)
         if g.stall_seconds:
             self.now += g.stall_seconds
             self.events.append(StepEvent(self.now, "stall", g.stall_seconds,
                                          {"units": g.granted}))
         if not g.done:
             self._open_grants.append(g)
-        got = g.granted
-        if self.mode == "vanilla":
-            return got
-        rem = got % bpp
-        if rem:                           # sub-partition remainder: no use
-            self.broker.release_units(self.replica_id, rem)
-        return got // bpp
+        return self._native(g.granted)
+
+    def _native(self, blocks: int) -> int:
+        """Broker blocks as whole native units; a remainder short of one
+        unit is of no use, and goes back to the broker."""
+        if blocks % self._bpu:
+            self.broker.release_units(self.replica_id, blocks % self._bpu)
+        return blocks // self._bpu
 
     def _enqueue_order(self, order: ReclaimOrder) -> None:
         """Order sink the broker calls under pressure: queue the shrink,
@@ -307,10 +289,7 @@ class ServeEngine:
         self._reclaim_orders.append(order)
 
     def _host_release(self, native: int) -> None:
-        self.broker.release_units(
-            self.replica_id,
-            native if self.mode == "vanilla" else
-            native * self.spec.blocks_per_partition)
+        self.broker.release_units(self.replica_id, native * self._bpu)
 
     def _make_pool(self, parts: int):
         """Physical paged twin: every token-extensive leaf becomes a flat
@@ -348,8 +327,9 @@ class ServeEngine:
         return M.cache_num_rows(self.caches)
 
     def _units(self) -> int:
-        return self.arena.units() if self.mode != "vanilla" else \
-            self.arena.units() // self.spec.blocks_per_partition
+        """The arena's size in whole partitions."""
+        return self.arena.units() * self._bpu \
+            // self.spec.blocks_per_partition
 
     def _sync(self) -> None:
         sync(self.caches)
@@ -570,20 +550,10 @@ class ServeEngine:
         return detail
 
     # -------------------------------------------------------------- decode
-    def _decode_graph(self) -> Optional[decode_graph.DecodeGraph]:
-        """The engine's decode graph where the step can be captured now,
-        else None."""
-        if not decode_graph.eligible(self.cfg, self.device):
-            return None
-        if self._graph is None:
-            self._graph = decode_graph.DecodeGraph(self.cfg, self.params,
-                                                   self.device)
-        return self._graph
-
     def _decode(self) -> None:
-        """One decode step over every row.  Its ``StepEvent`` times the
-        inputs' host->device copies, the step and the synchronise."""
-        graph = self._decode_graph()
+        """One decode step over every row, run by the engine's
+        ``DecodeGraph``.  Its ``StepEvent`` times the inputs' host->device
+        copies, the step and the synchronise."""
         with span("decode.inputs"):
             rows = self._rows()
             toks = torch.zeros((rows, 1), dtype=torch.int32)
@@ -595,20 +565,12 @@ class ServeEngine:
                     f"live row (free-suffix invariant violated)"
                 pos[row] = req.position
             t0 = time.perf_counter()
-            if graph is None:
-                toks, pos = toks.to(self.device), pos.to(self.device)
-            else:
-                graph.load(toks, pos)
+            self._graph.load(toks, pos)
         with span("decode.dispatch", rows=rows,
                   batch=len(self._row_req)) as s:
-            if graph is None:
-                how = "eager"
-                _logits, self.caches = M.decode_step(self.cfg, self.params,
-                                                     toks, pos, self.caches)
-            else:
-                how = graph.step(self.caches)
-                self.graph_captures += how == "capture"
-                self.graph_replays += how == "replay"
+            how = self._graph.step(self.caches)
+            self.graph_captures += how == "capture"
+            self.graph_replays += how == "replay"
             if s:
                 s.note(graph=how)
         with span("decode.sync"):
@@ -770,17 +732,17 @@ class ServeEngine:
             k = tgt - cur - owed
             if k <= 0:
                 return
-            units = k if self.mode != "vanilla" else \
-                k * self.spec.blocks_per_partition
-            self._grow_and_sync(units, via_gate=True)
+            self._grow_and_sync(self._of_parts(k), via_gate=True)
         elif tgt < cur:
             k = cur - tgt
             if self.mode == "hotmem" and \
                     not self.arena.manager.shrink_plan(k):
                 return                       # nothing reclaimable yet
-            units = k if self.mode != "vanilla" else \
-                k * self.spec.blocks_per_partition
-            self._unplug_now(units)
+            self._unplug_now(self._of_parts(k))
+
+    def _of_parts(self, parts: int) -> int:
+        """``parts`` partitions in native units."""
+        return parts * self.spec.blocks_per_partition // self._bpu
 
     def _grow_and_sync(self, native: int, *, via_gate: bool,
                        detail: Optional[dict] = None) -> int:
@@ -947,14 +909,10 @@ class ServeEngine:
         canceled so victims stop draining for us."""
         if not self._open_grants:
             return
-        bpp = self.spec.blocks_per_partition
         for g in list(self._open_grants):
             got = self.broker.claim_grant(g)
             if got:
-                if self.mode != "vanilla" and got % bpp:
-                    self.broker.release_units(self.replica_id, got % bpp)
-                native = got if self.mode == "vanilla" else got // bpp
-                self._grow_and_sync(native, via_gate=False,
+                self._grow_and_sync(self._native(got), via_gate=False,
                                     detail={"async_fill": True})
             if abandon and not g.done:
                 self.broker.abandon_grant(g)
@@ -972,13 +930,12 @@ class ServeEngine:
         (blocks actually freed, event)."""
         if self.mode == "static":
             return 0, None
-        bpp = self.spec.blocks_per_partition
-        k_parts = -(-k_blocks // bpp)
+        k_parts = -(-k_blocks // self.spec.blocks_per_partition)
+        units = self._of_parts(k_parts)
         if self.mode == "hotmem":
             self._evict_warm_suffix(k_parts)
-            if not self.arena.manager.shrink_plan(k_parts):
+            if not self.arena.manager.shrink_plan(units):
                 return 0, None
-            units = k_parts
         else:
             entries = sorted((t, prof, rid, row)
                              for prof, es in self.warm.items()
@@ -988,13 +945,11 @@ class ServeEngine:
                     break
                 self.arena.finish(rid)
                 self.warm[prof].remove((t, rid, row))
-            units = k_parts * bpp
             if self.arena.manager.shrink_plan(units)[0] == 0:
                 return 0, None        # nothing reclaimable: skip the
                 #                       zero-yield migration pass entirely
         ev = self._unplug_now(units, stolen=True)
-        return (ev.reclaimed_units *
-                (1 if self.mode == "vanilla" else bpp)), ev
+        return ev.reclaimed_units * self._bpu, ev
 
     # ----------------------------------------------------------------- run
     def _tick(self, todo: deque) -> None:

@@ -121,7 +121,8 @@ def qwen2():
 
 
 def test_a_cpu_engine_steps_eagerly_as_before(qwen2, monkeypatch):
-    """Up the ladder and back down on the CPU: no graph is made, every
+    """Up the ladder and back down on the CPU: the engine's
+    ``DecodeGraph`` runs every step eagerly and makes no graph, every
     ``decode.dispatch`` span says ``eager``, and the ``StepEvent``s (kinds,
     order, times, details, reclaimed bytes) and the arena's cache bytes
     are the JAX engine's."""
@@ -141,7 +142,7 @@ def test_a_cpu_engine_steps_eagerly_as_before(qwen2, monkeypatch):
     modes = [r.attrs["graph"] for r in spans.log()
              if r.name == "decode.dispatch"]
     spans.clear()
-    assert eng._graph is None
+    assert eng._graph.graph is None and eng._graph.key is None
     assert eng.graph_captures == eng.graph_replays == 0
     assert modes == ["eager"] * m["decode_steps"] and modes
     assert [(e.t, e.kind, e.wall_s, e.detail) for e in eng.events] == \

@@ -3,7 +3,9 @@
 
 On the CPU: its plain version (``ref.decode_qkv_rope``) is the sequence
 ``models.attention`` ran before, bit for bit, alone and inside a whole
-decode step; ``attention.fused_decode`` keeps the separate operations for
+decode step; its ring write (``ref.write_ring_slots``), which
+``attention._decode_block`` shares, is the former write over a whole ring
+and over each block of a split one; ``attention.fused_decode`` keeps the separate operations for
 M-RoPE, a sharding context, prefill and train.  On the card (``card``
 marker): the kernel against the plain version, bit for bit, at the widths
 of qwen2-7b, tinyllama, mixtral and gemma2, and a replayed qwen2-7b step
@@ -109,6 +111,52 @@ def test_plain_version_is_the_former_sequence(arch, dtype):
     # the write reached slot pos mod t of every row, -1 into slot t - 1
     assert _same(vc[4, t - 1], (v[4] + bv if bv is not None else v[4])
                  .reshape(cfg.num_kv_heads, cfg.head_dim))
+
+
+def _former_block_write(kc, vc, kn, vn, pos, t, off):
+    """``_decode_block``'s own write, as it was: slot pos mod t of the
+    block's slots [off, off + T) of the ring, rows whose slot another rank
+    holds left as they are."""
+    tb = kc.shape[1]
+    slot = torch.remainder(pos.long(), t) - off
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for c, new in ((kc, kn), (vc, vn)):
+        new = new.to(c.dtype)
+        if tb == t:
+            c[rows, slot] = new
+        else:
+            mine = ((slot >= 0) & (slot < tb))[:, None, None]
+            idx = slot.clamp(0, tb - 1)
+            c[rows, idx] = torch.where(mine, new, c[rows, idx])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("blocks,block", [(1, 0), (2, 0), (2, 1), (4, 0),
+                                          (4, 1), (4, 2), (4, 3)])
+def test_the_ring_write_is_the_former_block_write(blocks, block, dtype):
+    """``ref.write_ring_slots`` over a whole ring and over each block of a
+    ring split in 2 and in 4, at positions 0, t - 1, t, 3t + 5 and -1: the
+    bits of the former write, new K/V cast from f32, and every slot not
+    written unchanged."""
+    t, hkv, dh = 16, 2, 8
+    tb, off = t // blocks, block * (t // blocks)
+    pos = torch.tensor([0, t - 1, t, 3 * t + 5, -1], dtype=torch.int32)
+    gen = torch.Generator().manual_seed(7 + block)
+    kn, vn = (torch.randn((5, hkv, dh), generator=gen) for _ in range(2))
+    kc, vc = (torch.randn((5, tb, hkv, dh), generator=gen).to(dtype)
+              for _ in range(2))
+    before = kc.clone(), vc.clone()
+    kf, vf = kc.clone(), vc.clone()
+    ref.write_ring_slots(kc, vc, kn, vn, pos, t=t, off=off)
+    _former_block_write(kf, vf, kn, vn, pos, t, off)
+    assert _same(kc, kf) and _same(vc, vf)
+    written = torch.zeros((5, tb), dtype=torch.bool)
+    for row, p in enumerate(pos.tolist()):
+        if 0 <= p % t - off < tb:
+            written[row, p % t - off] = True
+    for c, old, new in ((kc, before[0], kn), (vc, before[1], vn)):
+        assert _same(c[~written], old[~written])
+        assert _same(c[written], new[written.any(1)].to(dtype))
 
 
 def _random_biases(tree, gen=None) -> None:

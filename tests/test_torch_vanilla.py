@@ -473,6 +473,33 @@ def test_make_pool_matches_jax(setup, parts):
         assert g.untyped_storage().data_ptr() not in cache_ptrs
 
 
+@pytest.mark.parametrize("mode,seed", [("vanilla", 0), ("vanilla", 3),
+                                       ("hotmem", 0), ("static", 0)])
+def test_the_arena_seats_its_manager_as_the_jax_engine_does(setup, mode,
+                                                            seed):
+    """The manager the arena seats at the engine's start size is the JAX
+    engine's: vanilla's pool and block hand-out order (the full pool
+    shuffled, then the start pool with the same ``Random``), hotmem's and
+    static's plugged partitions and free heap."""
+    cfg, params, spec = setup
+    jcfg = jreduced(jget_config("qwen2-7b"))
+    jspec = JArenaSpec.from_model(jcfg, spec.partition_tokens,
+                                  spec.n_partitions, spec.block_tokens)
+    want = jax_engine.ServeEngine(jcfg, None, jspec, mode=mode, seed=seed,
+                                  prewarm=False).arena.manager
+    got = ServeEngine(cfg, params, spec, mode=mode, seed=seed,
+                      prewarm=False).arena.manager
+    if mode == "vanilla":
+        assert got.pool_blocks == want.pool_blocks \
+            == 2 * spec.blocks_per_partition
+        assert got._free == want._free
+        assert sorted(got._free) == list(range(got.pool_blocks))
+    else:
+        assert got.plugged == want.plugged \
+            == (spec.n_partitions if mode == "static" else 2)
+        assert got._free == want._free == list(range(got.plugged))
+
+
 def test_vanilla_engine_unplug_migrates_into_fresh_pool(setup):
     """A scripted vanilla schedule whose unplug must migrate (as
     ``chip_smoke.py`` drives it on the card): the planned moves run, the
