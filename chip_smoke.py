@@ -94,6 +94,9 @@ from repro_torch.core.elastic import gather_blocks  # noqa: E402
 from repro_torch.kernels import kv_snapshot, ops, ref  # noqa: E402
 from repro_torch.kernels.partition_attention import (  # noqa: E402
     block_runs, splits_for)
+from repro_torch.launch.attention_cases import (  # noqa: E402
+    ENGINE_ROWS, TOL_BF16, TOL_F32, allclose, attention_close,
+    edge_positions, engine_positions, mean_of_v)
 from repro_torch.launch.cluster_demo import (build_cluster,  # noqa: E402
                                              demo_requests, host_budget,
                                              load_model, summarize)
@@ -133,7 +136,6 @@ from repro_torch.training.train_step import make_train_step  # noqa: E402
 ARCH = "qwen2-7b"
 PARTITION_TOKENS, N_PARTITIONS, BLOCK_TOKENS = 2048, 8, 32
 PAGE_BYTES = 2 << 20            # paged CoW: 56 pages of one 112 MiB row
-TOL_BF16, TOL_F32 = 2e-2, 2e-5  # the JAX package's kernel-test tolerances
 COMPACT_MOVES = 128             # kv_compact phase: tail [384, 512) -> head
 TIMED_RUNS = 20
 FLUSH_BYTES = 2 << 30
@@ -169,23 +171,6 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
-
-
-def allclose(got, want, tol: float) -> tuple[bool, float]:
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    return bool((err <= tol + tol * w.abs()).all()), float(err.max())
-
-
-def attention_close(got, want) -> tuple[bool, float, float]:
-    """bf16 attention outputs: within the JAX package's 2e-2 and, tighter,
-    within 8 * 2**-8 of the largest output (4 to 8 bf16 ulps at that size):
-    an output is a softmax-weighted mean of ~1,000 V rows, far smaller
-    than 1, where 2e-2 alone would pass an off-by-one mask.  Returns
-    (ok, max abs error, the tight limit)."""
-    ok, err = allclose(got, want, TOL_BF16)
-    limit = 8 * 2.0 ** -8 * float(want.float().abs().max())
-    return ok and err <= limit, err, limit
 
 
 def randn(shape, dtype, gen):
@@ -331,8 +316,7 @@ def phase_attention(cfg, gen) -> dict:
     # 32-slot tile, of exactly one, and not a multiple of the split; windows
     # shorter than a tile and than a split; rings wrapped far past T; and
     # pos = -1, every slot masked, against the mean of V over all T slots
-    edge = torch.tensor([5, 31, 32, 1001, 2047, 10 * t + 123, 1_000_003, -1],
-                        dtype=torch.int32, device=DEV)
+    edge = torch.tensor(edge_positions(t), dtype=torch.int32, device=DEV)
     edge_cases = [("p1", 1, lo, {}), ("p1_ring", 1, ring, {}),
                   ("edge_lengths", p, edge, {}),
                   ("edge_window_7", p, edge, {"window": 7}),
@@ -347,11 +331,35 @@ def phase_attention(cfg, gen) -> dict:
                   f"{TOL_BF16} and {limit}")
         errs[name], limits[name] = err, limit
         if pos is edge:
-            mean = v[p - 1].float().mean(0)[:, None].expand(hkv, g, dh)
-            ok, err, limit = attention_close(got[p - 1], mean)
+            ok, err, limit = attention_close(got[p - 1],
+                                             mean_of_v(v[p - 1], g))
             check(ok, f"partition_attention {name}, pos -1: error {err} "
                       f"from the mean of V within {limit}")
             errs[name + "_pos-1_vs_mean_v"] = err
+    # the engine's shape in the saturated cell: 64 rows at the positions
+    # the mix binds, the edge rows in place of the first function's eight
+    # (drawn from a generator of their own, so the other cases keep theirs)
+    gen64 = torch.Generator(device=DEV).manual_seed(64)
+    q64 = randn((ENGINE_ROWS, hkv, g, dh), bf16, gen64)
+    k64 = randn((ENGINE_ROWS, t, hkv, dh), bf16, gen64)
+    v64 = randn((ENGINE_ROWS, t, hkv, dh), bf16, gen64)
+    sat = torch.from_numpy(engine_positions(0)).to(DEV)
+    sat_edges = sat.clone()
+    sat_edges[:len(edge)] = edge
+    for w in (0, 100):
+        name = f"p64_saturated_edges_w{w}"
+        got = ops.partition_attention(q64, k64, v64, sat_edges, window=w)
+        ok, err, limit = attention_close(
+            got, ref.partition_attention(q64, k64, v64, sat_edges, window=w))
+        check(ok, f"partition_attention {name}: error {err} within "
+                  f"{TOL_BF16} and {limit}")
+        errs[name], limits[name] = err, limit
+        masked = edge_positions(t).index(-1)
+        ok, err, limit = attention_close(got[masked],
+                                         mean_of_v(v64[masked], g))
+        check(ok, f"partition_attention {name}, pos -1: error {err} from "
+                  f"the mean of V within {limit}")
+        errs[name + "_pos-1_vs_mean_v"] = err
     pos3 = torch.tensor([-1, 250, 31], dtype=torch.int32, device=DEV)
     for w in (0, 7):
         got = ops.partition_attention(q2, k2, v2, pos3, window=w)
@@ -376,22 +384,25 @@ def phase_attention(cfg, gen) -> dict:
     bound_s, bound_by = roofline.bound_seconds(nbytes, flops)
     kernel = lambda: ops.partition_attention(q, k, v, lo)  # noqa: E731
     plain = lambda: ref.partition_attention(q, k, v, lo)  # noqa: E731
-    # two more shapes, timed for the kernel line only: one row at its
-    # ring's end, and eight rows at the engine's positions (<= 256)
+    # three more shapes, timed for the kernel line only: one row at its
+    # ring's end, eight rows at positions <= 256, and the engine's 64 rows
+    # at the saturated mix's positions
     short = torch.randint(0, 257, (p,), generator=gen, device=DEV,
                           dtype=torch.int32)
     extra = []
-    for name, rows, pos in (
-            ("p1_pos2047", 1,
-             torch.tensor([t - 1], dtype=torch.int32, device=DEV)),
-            ("p8_pos_le_256", p, short)):
+    for name, args in (
+            ("p1_pos2047", (q[:1], k[:1], v[:1], torch.tensor(
+                [t - 1], dtype=torch.int32, device=DEV))),
+            ("p8_pos_le_256", (q, k, v, short)),
+            ("p64_saturated", (q64, k64, v64, sat))):
+        rows, pos = args[0].shape[0], args[3]
         n_valid = _valid_slots(pos, t)
-        args = (q[:rows], k[:rows], v[:rows], pos)
-        extra.append(_timed_shape(
+        extra.append({**_timed_shape(
             name, n_valid, partial(ops.partition_attention, *args),
             partial(ref.partition_attention, *args),
             2 * n_valid * hkv * dh * item + 2 * rows * hkv * g * dh * item
-            + 4 * rows, 4.0 * n_valid * hkv * g * dh))
+            + 4 * rows, 4.0 * n_valid * hkv * g * dh),
+            "splits": splits_for(ops.load(), args[0], t)})
     row = {"name": "partition_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/partition_attention.cu",
            "replaces": "src/repro/kernels/partition_attention.py:70",
@@ -509,7 +520,8 @@ def phase_attention_at(cfg, gen, tag: str) -> dict:
                                    "library_ms")}}
     emit({"phase": "kernel", "config": cfg.name, **_cut(cfg),
           "shape": [p, t, hkv, g, dh], "dtype": "bf16", "windows": windows,
-          "logit_cap": cap, "scale": scale, "splits": splits_for(q, t),
+          "logit_cap": cap, "scale": scale,
+          "splits": splits_for(ops.load(), q, t),
           "errors": errs, "tight_limits": limits,
           **{k: main[k] for k in ("window", "valid_slots", "bytes", "flops",
                                   "sdpa_max_abs_err", "sdpa_without_cap_ms",

@@ -17,6 +17,8 @@ int partition_attention(const void* q, const void* k, const void* v,
                         int splits, int is_bf16, float scale, float cap,
                         int window, int off, int t_ring, void* stream);
 int partition_attention_prepare();
+int partition_attention_occupancy(int splits, int dh, int is_bf16,
+                                  int* clusters, int* blocks_per_sm);
 int paged_attention(const void* q, const void* k, const void* v,
                     const void* tables, const void* positions, void* out,
                     int p, int nb, int bt, int mb, int hkv, int g, int dh,
@@ -63,6 +65,16 @@ void attention(const torch::Tensor& q, const torch::Tensor& k,
             q.scalar_type() == torch::kBFloat16, scale, cap, window, off,
             t_ring, reinterpret_cast<void*>(stream)),
         "partition_attention launch");
+}
+
+// (clusters the card holds at once, blocks an SM) of partition_attention's
+// kernel at `splits` blocks a cluster, head dim dh, bf16 or f32
+std::vector<int64_t> occupancy(int64_t splits, int64_t dh, bool is_bf16) {
+  int clusters = 0, blocks_per_sm = 0;
+  check(partition_attention_occupancy(splits, dh, is_bf16, &clusters,
+                                      &blocks_per_sm),
+        "partition_attention occupancy query");
+  return {clusters, blocks_per_sm};
 }
 
 // q (P, Hkv, G, Dh), k/v_pool (NB, BT, Hkv, Dh), out like q,
@@ -143,6 +155,7 @@ void prepare() {
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("partition_attention", &attention);
+  m.def("partition_attention_occupancy", &occupancy);
   m.def("paged_attention", &paged);
   m.def("snapshot_copy", &snapshot);
   m.def("kv_compact", &compact);

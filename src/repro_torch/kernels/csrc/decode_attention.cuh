@@ -68,13 +68,18 @@
 
 namespace decode_attention {
 
-// 64 threads, 3 stages of 32 tokens: about 57 KB of shared memory at
-// Dh = 128 in bf16, 3 blocks an SM (kernels/partition_attention.py::
-// BLOCKS_PER_SM)
+// 64 threads, 2 stages of 32 tokens: about 39 KB of shared memory at
+// Dh = 128 in bf16, 5 blocks an SM (the occupancy query below, which
+// kernels/partition_attention.py::blocks_per_sm asks for the split
+// count's one-wave term).  More blocks with one tile in flight each beat
+// fewer with two: a block's tile loop waits on its own instructions more
+// than on its bytes (at 64 rows of qwen2-7b on an H100, 3 stages and 4
+// blocks an SM took 0.078 ms at their best split count, 2 stages 0.071 ms;
+// launch/attention_sweep.py)
 constexpr int kWarps = 2;                  // 16 tokens of each tile a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 16 * kWarps;         // tokens per pipeline stage
-constexpr int kStages = 3;
+constexpr int kStages = 2;
 constexpr int kRows = 16;                  // query heads a block (mma M)
 constexpr int kMaxDh = 256;
 // At most this many splits: the splits of a row group are one cluster,
@@ -127,9 +132,18 @@ __host__ __device__ inline size_t tab_offset(int dh) {
   const bool f32 = std::is_same<T, float>::value;
   return p_offset<T>(dh) + (f32 ? sizeof(float) * kWarps * 16 * 16 : 0);
 }
+// The block merges its warps' and then its cluster's partials in the same
+// shared memory once the tile loop is done (run, below): f32 (m, l, acc)
+// of each warp, the block's partial, and every split's weights
+__host__ __device__ inline size_t merge_bytes(int dh) {
+  return sizeof(float) *
+         ((size_t)kWarps * kRows * (dh + 8) + 2 * kWarps * kRows +
+          (size_t)kRows * dh + 3 * kRows + 2 * kRows * kMaxSplits);
+}
 template <typename T>
 __host__ __device__ inline size_t smem_bytes(int dh, int tab_cap) {
-  return tab_offset<T>(dh) + sizeof(int) * (size_t)tab_cap;
+  const size_t layout = tab_offset<T>(dh) + sizeof(int) * (size_t)tab_cap;
+  return layout > merge_bytes(dh) ? layout : merge_bytes(dh);
 }
 
 // The s-th slice of a range of n tokens over `splits` slices, as
@@ -469,11 +483,9 @@ __device__ __forceinline__ void run(const Params& prm, const Coords& c,
   cp_async_wait<0>();
   __syncthreads();
 
-  // merge the warps in shared memory (the stages are free now): the
-  // block's partial, (m, l) and acc of its 16 rows, stays in its own
-  // shared memory for the cluster's merge
-  // (the stages hold at least 384 * (Dh + 8) bytes; this takes about
-  // 192 * Dh + 3.5 KB)
+  // merge the warps in shared memory (every region is free now; smem_bytes
+  // holds at least merge_bytes): the block's partial, (m, l) and acc of its
+  // 16 rows, stays in its own shared memory for the cluster's merge
   const int sld = dh + 8;                           // 2-way bank conflicts
   float* sc_acc = reinterpret_cast<float*>(smem);   // [kWarps][16][sld]
   float* sc_m = sc_acc + kWarps * kRows * sld;      // [kWarps][16]
@@ -640,6 +652,33 @@ inline cudaError_t prepare_kernel(Kernel kernel) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
+}
+
+// How many clusters of `splits` blocks of `kernel`, each block with `smem`
+// bytes of shared memory, the card holds at once, and how many of its
+// blocks one SM holds: what decides how many waves a grid of clusters
+// takes (the split count's one-wave term reads the second;
+// launch/attention_sweep.py prints both).  Returns a CUDA error code, 0 on
+// success.
+template <class Kernel>
+inline int occupancy(Kernel kernel, int splits, size_t smem, int* clusters,
+                     int* blocks_per_sm) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(splits, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                      kThreads, smem);
+  return (int)e;
 }
 
 // Launches `kernel` with one cluster per row group: the splits of a group

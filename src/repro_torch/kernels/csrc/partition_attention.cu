@@ -96,6 +96,19 @@ int dispatch(const Params& prm, cudaStream_t stream) {
 }
 
 template <typename T>
+int occupancy_of(int splits, int dh, int* clusters, int* blocks_per_sm) {
+  const size_t smem = smem_bytes<T>(dh, 0);
+  if (dh <= 64)
+    return occupancy(partition_attention_kernel<T, 64>, splits, smem,
+                     clusters, blocks_per_sm);
+  if (dh <= 128)
+    return occupancy(partition_attention_kernel<T, 128>, splits, smem,
+                     clusters, blocks_per_sm);
+  return occupancy(partition_attention_kernel<T, 256>, splits, smem,
+                   clusters, blocks_per_sm);
+}
+
+template <typename T>
 cudaError_t prepare_all() {
   cudaError_t e = prepare_kernel(partition_attention_kernel<T, 64>);
   if (e == cudaSuccess) e = prepare_kernel(partition_attention_kernel<T, 128>);
@@ -154,4 +167,18 @@ int partition_attention_prepare() {
   cudaError_t e = prepare_all<__nv_bfloat16>();
   if (e == cudaSuccess) e = prepare_all<float>();
   return (int)e;
+}
+
+// The clusters of `splits` blocks of the kernel for head dim dh that the
+// card holds at once, and its blocks an SM (decode_attention.cuh's
+// occupancy), after partition_attention_prepare.  Returns a CUDA error
+// code, 0 on success.
+int partition_attention_occupancy(int splits, int dh, int is_bf16,
+                                  int* clusters, int* blocks_per_sm) {
+  if (splits < 1 || splits > kMaxSplits || dh < 16 || dh > kMaxDh ||
+      dh % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return is_bf16 ? occupancy_of<__nv_bfloat16>(splits, dh, clusters,
+                                               blocks_per_sm)
+                 : occupancy_of<float>(splits, dh, clusters, blocks_per_sm);
 }

@@ -19,7 +19,8 @@ torch's headers) into ``build/torch_kernels/`` at the repository root;
 
 The two decode-attention kernels are one split-K design
 (``csrc/decode_attention.cuh``): each row's valid range is cut into slices
-over the SMs (``partition_attention.num_splits``, from the shapes alone),
+over the SMs (``partition_attention.splits_for``, from the shapes and the
+blocks an SM the card holds, never the positions),
 K/V tiles stream through a ``cp.async`` pipeline, bf16 scores and P.V run
 on the tensor cores (``mma.sync``), and the blocks of each row group, one
 thread-block cluster, merge their f32 partials through distributed shared

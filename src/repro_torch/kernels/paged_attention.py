@@ -60,6 +60,6 @@ def paged_attention(ext, q, k_pool, v_pool, tables, positions, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ext.paged_attention(q, k_pool, v_pool, tables, positions, out,
-                            splits_for(q, mb * bt), float(scale),
+                            splits_for(ext, q, mb * bt), float(scale),
                             float(logit_cap), stream)
     return out

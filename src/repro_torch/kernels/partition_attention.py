@@ -28,22 +28,30 @@ import torch
 
 ROWS_PER_BLOCK = 16    # query heads of one block (the mma's 16 rows)
 SPLIT_ALIGN = 16       # a slice's length is a multiple of this many tokens
-BLOCKS_PER_SM = 3      # blocks one SM holds (bf16, Dh = 128: 57 KB each)
+SPLIT_TOKENS = 512     # a block walks at most this many of n_max's tokens
 MAX_SPLITS = 16        # csrc/decode_attention.cuh::kMaxSplits (a cluster)
 MAX_BLOCKS = 2 ** 31 - 1
 
 
-def num_splits(rows: int, hkv: int, g: int, n_max: int, sms: int) -> int:
+def num_splits(rows: int, hkv: int, g: int, n_max: int, sms: int,
+               blocks_per_sm: int) -> int:
     """Slices each row's range is cut into, from the shapes alone (never
-    the positions, so the host does not wait for the card): as many as fill
-    ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs in one wave, at most
-    one per ``SPLIT_ALIGN`` tokens of the longest range ``n_max`` (T, or
-    MB * BT), at most ``MAX_SPLITS`` (one cluster): 12 at P = 8, Hkv = 4
-    and 16 at P = 1 on 132 SMs (``launch/attention_sweep.py`` times the
-    alternatives).  The kernel may use fewer where the card cannot hold a
-    cluster of this many blocks."""
+    the positions, so the host does not wait for the card, and a CUDA
+    graph's replays keep the grid it captured): enough that no block walks
+    more than ``SPLIT_TOKENS`` of the longest range ``n_max`` (T, or
+    MB * BT), and at least as many as fill ``blocks_per_sm`` blocks on
+    each of ``sms`` SMs in one wave; at most one per ``SPLIT_ALIGN``
+    tokens of ``n_max``, at most ``MAX_SPLITS`` (one cluster).  On an
+    H100 (132 SMs, 5 blocks an SM at Dh = 128 in bf16) at Hkv = 4, G = 7,
+    T = 2048: 4 at the engine's 64 rows (each cluster's blocks walk equal
+    slices of their row, so the rows' unequal lengths become waves of
+    clusters instead of one long block a row), 16 at P = 8 and at P = 1
+    (``launch/attention_sweep.py`` times the alternatives: on one H100 at
+    64 rows, 2, 3, 4, 5, 6, 8, 12 and 16 splits took 0.085, 0.077, 0.071,
+    0.076, 0.072, 0.076, 0.096 and 0.111 ms).  The kernel may use fewer
+    where the card cannot hold a cluster of this many blocks."""
     groups = rows * hkv * -(-g // ROWS_PER_BLOCK)
-    s = max(1, BLOCKS_PER_SM * sms // groups)
+    s = max(1, blocks_per_sm * sms // groups, -(-n_max // SPLIT_TOKENS))
     return max(1, min(s, -(-n_max // SPLIT_ALIGN), MAX_SPLITS))
 
 
@@ -61,10 +69,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits_for(q, n_max: int) -> int:
-    """``num_splits`` for a call on ``q`` (P, Hkv, G, Dh) on its device."""
-    p, hkv, g, _dh = q.shape
-    splits = num_splits(p, hkv, g, n_max, _sm_count(q.device.index))
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(ext, index: int, dh: int, bf16: bool) -> int:
+    """Blocks of the attention kernel for head dim ``dh`` one SM of device
+    ``index`` holds at once, as the card's occupancy query answers it for
+    the kernel's shared memory (``ext.partition_attention_occupancy``): 8
+    at Dh = 64, 5 at 128 and 3 at 256 in bf16 on an H100."""
+    with torch.cuda.device(index):
+        return ext.partition_attention_occupancy(1, dh, bf16)[1]
+
+
+def splits_for(ext, q, n_max: int) -> int:
+    """``num_splits`` for a call on ``q`` (P, Hkv, G, Dh) on its device,
+    with the blocks an SM that ``ext``'s kernel holds at q's head dim and
+    dtype."""
+    p, hkv, g, dh = q.shape
+    index = q.device.index
+    splits = num_splits(p, hkv, g, n_max, _sm_count(index),
+                        blocks_per_sm(ext, index, dh,
+                                      q.dtype == torch.bfloat16))
     if p * hkv * -(-g // ROWS_PER_BLOCK) * splits > MAX_BLOCKS:
         raise ValueError("the grid exceeds CUDA's limit of 2**31 - 1 blocks")
     return splits
@@ -152,7 +175,7 @@ def partition_attention(ext, q, k_cache, v_cache, positions, *,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ext.partition_attention(q, k_cache, v_cache, positions, out, top,
-                                lsum, splits_for(q, tb), float(scale),
+                                lsum, splits_for(ext, q, tb), float(scale),
                                 float(logit_cap), int(window), int(off),
                                 int(t), stream)
     return (top, lsum, out) if partials else out

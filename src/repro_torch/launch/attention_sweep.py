@@ -1,18 +1,24 @@
 """Split-count sweep of the two decode-attention kernels on the card.
 
-Times ``partition_attention`` and ``paged_attention`` at the shapes of
-``chip_smoke.py`` (full-width qwen2-7b heads: P = 8 rows of T = 2048
-slots, Hkv = 4, G = 7, Dh = 128, bf16; the pool in 512 blocks of 32) for
-several split counts passed to the kernels directly, beside the count that
-``partition_attention.num_splits`` picks.  Three position sets: random in
-[0, T) (the kernel table's case), one row at T - 1, and eight rows at
-positions <= 256 (the engine's range).  Each time is the median of 20
-runs between CUDA events, each behind a 2 GiB read that flushes L2.
+Times ``partition_attention`` and ``paged_attention`` at full-width
+qwen2-7b heads (T = 2048 slots a row, Hkv = 4, G = 7, Dh = 128, bf16; the
+pool in blocks of 32) for several split counts passed to the kernels
+directly, beside the count that ``partition_attention.splits_for`` picks.
+Four position sets: eight rows random in [0, T) (the kernel table's case),
+one row at T - 1, eight rows at positions <= 256, and the engine's 64 rows
+as the saturated mix binds them (``attention_cases.engine_positions``: 8
+rows a function, each at a position drawn uniformly in [prompt, prompt +
+decode)).  Each time is the median of 20 runs between CUDA events, each
+behind a 2 GiB read that flushes L2, beside the bound: the valid slots'
+K/V read once at the HBM rate.  Then how many clusters of each split count, and how many
+blocks an SM, the card holds at once, per dtype and head dim.
 
     python -m repro_torch.launch.attention_sweep
 
-Prints one JSON line per (shape, splits) and the card's name and power
-limit; fails without a CUDA device.
+Prints one JSON line per (case, splits), one per case with the count
+``splits_for`` picks, one per (dtype, head dim, splits) with the
+occupancy, and the card's name and power limit; fails without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -22,13 +28,14 @@ import subprocess
 import numpy as np
 import torch
 
+from repro_torch import roofline
 from repro_torch.kernels import ops
 from repro_torch.kernels import partition_attention as pa
+from repro_torch.launch.attention_cases import ENGINE_ROWS, engine_positions
 from repro_torch.launch.kernel_demo import scatter_to_pool
 
-SPLITS = (4, 6, 8, 12, 16)
+SPLITS = (1, 2, 3, 4, 5, 6, 8, 12, 16)
 RUNS = 20
-
 
 def _median_ms(fn, flush) -> float:
     fn()
@@ -55,26 +62,41 @@ def main() -> None:
     ext = ops.load()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    p, t, hkv, g, dh = 8, 2048, 4, 7, 128
+    t, hkv, g, dh = 2048, 4, 7, 128
     q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
-               for s in ((p, hkv, g, dh), (p, t, hkv, dh), (p, t, hkv, dh)))
+               for s in ((ENGINE_ROWS, hkv, g, dh),
+                         (ENGINE_ROWS, t, hkv, dh),
+                         (ENGINE_ROWS, t, hkv, dh)))
     k_pool, v_pool, tables, _ = scatter_to_pool(k, v, 32, seed=5)
     positions = {
-        "p8_random": torch.randint(0, t, (p,), generator=gen, device=dev,
+        "p8_random": torch.randint(0, t, (8,), generator=gen, device=dev,
                                    dtype=torch.int32),
         "p1_pos2047": torch.tensor([t - 1], dtype=torch.int32, device=dev),
-        "p8_pos_le_256": torch.randint(0, 257, (p,), generator=gen,
-                                       device=dev, dtype=torch.int32)}
+        "p8_pos_le_256": torch.randint(0, 257, (8,), generator=gen,
+                                       device=dev, dtype=torch.int32),
+        "p64_saturated": torch.from_numpy(engine_positions(0)).to(dev)}
     flush = torch.ones(2 << 30, dtype=torch.uint8, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = dh ** -0.5
+    item = q.element_size()
+    none = torch.empty(0, dtype=torch.float32, device=dev)
     for name, pos in positions.items():
         rows = pos.shape[0]
         qr = q[:rows]
         out = torch.empty_like(qr)
-        none = torch.empty(0, dtype=torch.float32, device=dev)
-        picked = pa.num_splits(rows, hkv, g, t, sms)
+        valid = int(torch.clamp(pos.long() + 1, 0, t).sum())
+        nbytes = 2 * valid * hkv * dh * item + 2 * qr.numel() * item \
+            + 4 * rows
+        bound_s, bound_by = roofline.bound_seconds(
+            nbytes, 4.0 * valid * hkv * g * dh)
+        picked = pa.splits_for(ext, qr, t)
+        print(json.dumps({"case": name, "rows": rows, "valid_slots": valid,
+                          "longest": int(pos.max()) + 1,
+                          "picked_splits": picked,
+                          "split_tokens": pa.SPLIT_TOKENS,
+                          "bound_ms": bound_s * 1e3, "bound_by": bound_by}),
+              flush=True)
         for splits in SPLITS:
             part = _median_ms(lambda s=splits: ext.partition_attention(
                 qr, k[:rows], v[:rows], pos, out, none, none, s, scale, 0.0,
@@ -85,7 +107,20 @@ def main() -> None:
                 stream), flush)
             print(json.dumps({"case": name, "splits": splits,
                               "picked": splits == picked,
-                              "partition_ms": part, "paged_ms": paged}),
+                              "partition_ms": part, "paged_ms": paged,
+                              "partition_roofline_pct":
+                                  100 * bound_s * 1e3 / part}),
+                  flush=True)
+    for dtype, head_dim in ((d, h) for d in ("bf16", "f32")
+                            for h in (64, 128, 256)):
+        for splits in SPLITS:
+            clusters, per_sm = ext.partition_attention_occupancy(
+                splits, head_dim, dtype == "bf16")
+            print(json.dumps({"occupancy": f"partition_attention {dtype}",
+                              "dh": head_dim, "splits": splits,
+                              "clusters_at_once": clusters,
+                              "blocks_at_once": clusters * splits,
+                              "blocks_per_sm": per_sm, "sms": sms}),
                   flush=True)
 
 
