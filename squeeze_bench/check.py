@@ -46,11 +46,21 @@ Numbers compared, each with its limit (``LIMITS``) or floor
   rows_judged   rows with a judged slot (at least one);
   judged_share  judged (layer, slot) pairs over written ones (at least
                 ``FLOORS["judged_share"]``).
+
+A reference may ask for numbers of its own (``NUMBERS``: each name with a
+function of the sizes that gives a layer), each the pooled K/V error of
+that layer over its judged slots, K and V together (``None`` where no slot
+of it was judged, which fails).  Their limits are the configuration's:
+its file states each under ``"limits"``, beside ``"limits_set_from"``,
+the readings it was set from (``limits``); ``reference/moe.py`` asks for
+``expert_kv_err``.  A dense configuration states none and is held to the
+shared limits alone.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 import re
 
 import torch
@@ -116,7 +126,46 @@ def reference(config: dict):
     except NotImplementedError as e:
         raise ValueError(f"reference {name!r} does not cover this "
                          f"configuration's model: {e}") from None
+    limits(config, mod)
     return mod
+
+
+def limits(config: dict, ref) -> dict:
+    """``LIMITS``, and for each number that ``ref`` asks for (``NUMBERS``)
+    the limit that the configuration's file states under ``"limits"``.
+    Raises ``ValueError`` with a one-line reason where the file leaves
+    one out, states one that is not a positive number or that its
+    reference asks for no number of (a shared limit too), or says under
+    ``"limits_set_from"`` nothing of the readings it set them from."""
+    name = config.get("reference", "decoder")
+    asked = getattr(ref, "NUMBERS", {})
+    stated = config.get("limits", {})
+    if not isinstance(stated, dict):
+        raise ValueError("limits is not an object of limits by number")
+    extra = sorted(set(stated) - set(asked))
+    if extra:
+        raise ValueError(f"limits states {', '.join(extra)}, which "
+                         f"reference {name!r} asks for no number of")
+    missing = [n for n in asked if n not in stated]
+    if missing:
+        raise ValueError(f"reference {name!r} asks for "
+                         f"{', '.join(missing)}, whose limit the "
+                         "configuration does not state under limits")
+    for n, v in stated.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)) \
+                or not 0 < v < math.inf:
+            raise ValueError(f"limit {n} = {v!r} is not a positive number")
+    said = config.get("limits_set_from")
+    if stated and not (isinstance(said, str) and said.strip()):
+        raise ValueError("limits_set_from does not say which readings the "
+                         "limits were set from")
+    return {**LIMITS, **stated}
+
+
+def layers(ref, model: dict) -> dict:
+    """{number: layer} of each number that ``ref`` asks for, on the sizes
+    ``model``."""
+    return {n: f(model) for n, f in getattr(ref, "NUMBERS", {}).items()}
 
 
 def prompt_token(name: str) -> int:
@@ -174,10 +223,13 @@ def judged_slots(settled: torch.Tensor) -> torch.Tensor:
     return below.cumprod(1).bool()
 
 
-def judge(run: dict, items: list[dict], reference) -> dict:
+def judge(run: dict, items: list[dict], reference,
+          at: dict | None = None) -> dict:
     """The compared numbers.  ``reference(tokens) -> (K, V)``, each
     (layers, S, kv_heads, head_dim) f32, or ``(K, V, settled)`` with
-    settled (layers, S) bool."""
+    settled (layers, S) bool.  ``at`` ({number: layer}, ``layers``): a
+    reference's own numbers, each the pooled error of its layer."""
+    at = at or {}
     dev = run["cell"].device
     by_name: dict[str, list] = {}
     for it in items:
@@ -224,17 +276,20 @@ def judge(run: dict, items: list[dict], reference) -> dict:
     if not items:
         return {"kv_head_err": head, "kv_err": 0.0, "prefix_diff": 0,
                 "rows_judged": 0, "judged_share": 0.0, "kv_slot_err": slot,
-                "kv_layers": [], "judged_layers": []}
-    layers = (sq_d / sq_r).sqrt()
+                "kv_layers": [], "judged_layers": [],
+                **{n: None for n in at}}
+    pooled = (sq_d / sq_r).sqrt()
     seen = judged_n > 0
-    return {"kv_head_err": head, "kv_err": float(layers[seen].mean()),
+    return {"kv_head_err": head, "kv_err": float(pooled[seen].mean()),
             "prefix_diff": prefix_diff, "rows_judged": rows,
             "judged_share": int(judged_n.sum()) / (slots * len(judged_n)),
             "kv_slot_err": slot,
             "kv_layers": [round(float(x), 5) if j else None
-                          for x, j in zip(layers, seen)],
+                          for x, j in zip(pooled, seen)],
             "judged_layers": [round(float(x) / slots, 4)
-                              for x in judged_n]}
+                              for x in judged_n],
+            **{n: float(pooled[i]) if seen[i] else None
+               for n, i in at.items()}}
 
 
 def bookkeeping(run: dict) -> dict:
@@ -258,9 +313,12 @@ def bookkeeping(run: dict) -> dict:
 
 def verdict(numbers: dict, limits: dict = LIMITS) -> tuple[bool, dict]:
     """(correct, {name: [number, limit or floor]}): each number at or
-    under its limit, and at or above its floor (``FLOORS``)."""
+    under its limit (``limits``: the configuration's, ``LIMITS`` for a
+    dense one; a number that could not be read, ``None``, is not), and at
+    or above its floor (``FLOORS``)."""
     shown = {k: [numbers[k], limits[k]] for k in limits}
     shown.update({k: [numbers[k], FLOORS[k]] for k in FLOORS})
-    ok = all(numbers[k] <= limits[k] for k in limits) \
+    ok = all(numbers[k] is not None and numbers[k] <= limits[k]
+             for k in limits) \
         and all(numbers[k] >= FLOORS[k] for k in FLOORS)
     return ok, shown

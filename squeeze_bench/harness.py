@@ -114,10 +114,14 @@ class Cell:
         self.profiling = False
         self.origin = time.perf_counter()
         self.cfg = model_config(config)
+        self.seed, self.control = seed, control
         self.params = weights.draw(M.param_specs(self.cfg), seed,
                                    self.device)
-        served = weights.quantize_int8(self.params) \
-            if control == "int8" else self.params
+        served = self.params
+        if "experts" in weights.CONTROLS.get(control, ()):
+            weights.round_experts_int8(self.params)
+        if "projections" in weights.CONTROLS.get(control, ()):
+            served = weights.quantize_int8(self.params)
         a = config["arena"]
         self.spec = ArenaSpec.from_model(self.cfg, a["partition_tokens"],
                                          a["n_partitions"], a["block_tokens"])
@@ -143,6 +147,17 @@ class Cell:
 
     def clock(self) -> float:
         return time.perf_counter() - self.origin
+
+    def reference_params(self) -> dict:
+        """The weights the reference reads, once the program's state is
+        freed: those drawn from the seed.  A control that rounded the
+        experts in place has every leaf drawn again, into the same
+        buffers."""
+        from squeeze_bench import weights
+        if "experts" in weights.CONTROLS.get(self.control, ()):
+            weights.draw(self.M.param_specs(self.cfg), self.seed,
+                         self.device, into=self.params)
+        return self.params
 
     def sync(self) -> None:
         if self.cuda:

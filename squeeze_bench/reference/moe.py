@@ -63,6 +63,23 @@ FIXED = {k: v for k, v in DENSE_FIXED.items() if k not in READS + INERT}
 FIXED["family"] = "moe"
 
 
+def expert_layer(model: dict) -> int:
+    """The first layer whose K/V were computed from an expert block's
+    output: layer 1, every block being sparse (one block pattern,
+    ``FIXED``), so layer 0's expert block feeds it."""
+    return 1
+
+
+# Numbers this reference asks the check for beside the shared ones, each
+# the pooled K/V error of one layer over its judged slots (``check.judge``),
+# by a function of the sizes that gives the layer, and held to the limit
+# the configuration's file states under ``"limits"``:
+#   expert_kv_err  at ``expert_layer``, which is nearly all judged, where
+#                  deeper layers are judged thinly: lower precision in the
+#                  experts alone moves it, and not the shared limits
+NUMBERS = {"expert_kv_err": expert_layer}
+
+
 def covers(model: dict) -> None:
     """Raises ``NotImplementedError``, with the reason, for a ``model``
     whose block this reference does not compute."""
@@ -73,6 +90,10 @@ def covers(model: dict) -> None:
                                   "block; the model has no experts")
     if not 0 < k < e:
         raise NotImplementedError(f"top-{k} routing over {e} experts")
+    if model.get("num_layers", 0) <= expert_layer(model):
+        raise NotImplementedError(
+            f"{model.get('num_layers')} layer(s): no layer's K/V were "
+            "computed from an expert block's output")
     if model.get("act", "silu") != "silu":
         raise NotImplementedError("this reference is the SiLU MLP")
     # the program gives each expert int(n k cf / E) slots (rounded up to

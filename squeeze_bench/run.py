@@ -12,11 +12,17 @@ end-to-end ones.  The last line of standard output is one JSON object;
 the numbers that decide ``correct`` end standard error, each beside its
 limit or floor.  Exit codes: 0 a result was printed; 2 bad arguments or
 files, or a configuration whose sizes, as the program runs them, its
-plain reference does not cover (decided before set-up); 3 no CUDA
-device, or too few; 4 JAX or the JAX package was loaded.
+plain reference does not cover, or that leaves out a limit its reference
+asks for (decided before set-up); 3 no CUDA device, or too few; 4 JAX or
+the JAX package was loaded.
 
 ``--control int8`` (not part of the cell) serves the port's int8 weight
-path instead of bf16: the control the limits were set against.
+path instead of bf16: the control the shared limits were set against.
+``--control int8x`` serves the same with every expert matrix rounded to
+int8's per-output-channel grid too (kept in bf16), and ``--control int8e``
+the experts so rounded with every other weight in bf16: the controls of an
+expert model's own limit (``expert_kv_err``), which the shared limits do
+not see under ``int8e``.
 """
 from __future__ import annotations
 
@@ -42,7 +48,8 @@ def parse(argv=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", choices=("int8",), default=None)
+    ap.add_argument("--control", choices=("int8", "int8x", "int8e"),
+                    default=None)
     return ap.parse_args(argv)
 
 
@@ -121,6 +128,7 @@ def main(argv=None) -> int:
         print(f"{args.workload}: {e}", file=sys.stderr)
         return 2
     sizes = check.sizes(config)
+    limits = check.limits(config, reference)
 
     import torch
     if not torch.cuda.is_available() \
@@ -152,10 +160,12 @@ def main(argv=None) -> int:
     cell.broker = None
     torch.cuda.synchronize()
     dtype = getattr(torch, config["dtype"])
+    params = cell.reference_params()
     numbers.update(check.judge(
         run, items, lambda tok: reference.kv_cache(
-            sizes, cell.params, tok, dtype=dtype)))
-    correct, shown = check.verdict(numbers)
+            sizes, params, tok, dtype=dtype),
+        at=check.layers(reference, sizes)))
+    correct, shown = check.verdict(numbers, limits)
 
     found = forbidden_modules()
     if found:

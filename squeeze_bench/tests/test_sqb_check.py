@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from repro_torch.models import model as M
-from squeeze_bench import check, harness
+from squeeze_bench import check, harness, weights
 from squeeze_bench.check import LIMITS
 from squeeze_bench.reference import decoder
 from squeeze_bench.tests import small
@@ -198,3 +198,93 @@ def test_idle_clock_jump_is_caught():
     ``keep_alive / 8``, past the wall clock, and the run counts it."""
     (ok, shown), numbers, run = run_cell("burst", seconds=3.0)
     assert not ok and numbers["clock_ahead"] > 0
+
+
+# -- the int8x control: the int8 control with the experts on int8's grid --
+
+
+def _served(cfg, control):
+    """The weights a cell of ``cfg`` serves under ``control``, and the
+    cell."""
+    cell = harness.Cell(cfg, small.mix("saturated"), 3, "cpu",
+                        control=control)
+    return dict(weights._walk(cell.reps[0].engine.params)), cell
+
+
+def _moe():
+    from squeeze_bench.tests.test_sqb_moe import moe_config
+    return moe_config()
+
+
+def test_int8x_puts_every_expert_matrix_on_its_int8_grid():
+    """Each expert matrix served is what rounding the drawn one to int8's
+    per-output-channel grid (symmetric, absmax / 127) gives, kept in bf16,
+    worked out here over the whole stack at once: at most 255 levels in
+    each output channel.  Once the program's state is freed, the weights
+    the reference reads are those drawn from the seed again, bit for
+    bit."""
+    served, cell = _served(_moe(), "int8x")
+    drawn = dict(weights._walk(weights.draw(M.param_specs(cell.cfg), 3,
+                                            "cpu")))
+    ffn = ("decoder", "groups", 0, "ffn")
+    for name in ("gate", "up", "down"):
+        w0 = drawn[ffn + (name,)].float()
+        scale = w0.abs().amax(dim=-2, keepdim=True).clamp(min=1e-12) / 127
+        q = torch.round(w0 / scale).clamp(-127, 127)
+        got = served[ffn + (name,)]
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, (q * scale).to(torch.bfloat16))
+        assert not torch.equal(got, drawn[ffn + (name,)])
+        levels = q.transpose(-1, -2).flatten(0, -2)
+        assert max(len(torch.unique(c)) for c in levels) <= 255
+    assert torch.equal(served[ffn + ("router",)], drawn[ffn + ("router",)])
+    cell.reps[0].engine = None
+    ref = dict(weights._walk(cell.reference_params()))
+    assert ref.keys() == drawn.keys()
+    assert all(torch.equal(ref[k], drawn[k]) for k in drawn)
+
+
+def test_int8x_quantises_the_projections_as_int8_does():
+    """Every leaf but the experts is served as ``--control int8`` serves
+    it: the attention projections and the output head as int8 with their
+    per-channel scales, the router and the norms as drawn."""
+    a, _ = _served(_moe(), "int8")
+    b, _ = _served(_moe(), "int8x")
+    assert a.keys() == b.keys()
+    experts = {("decoder", "groups", 0, "ffn", n) for n in ("gate", "up",
+                                                            "down")}
+    rest = a.keys() - experts
+    assert any(a[k].dtype == torch.int8 for k in rest)
+    assert ("decoder", "groups", 0, "attn", "q", "qscale") in rest
+    assert all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+               for k in rest)
+
+
+def test_int8e_rounds_the_experts_alone():
+    """``int8e`` serves the experts as ``int8x`` does and every other leaf
+    as drawn: lower precision in the experts alone."""
+    served, cell = _served(_moe(), "int8e")
+    x, _ = _served(_moe(), "int8x")
+    drawn = dict(weights._walk(weights.draw(M.param_specs(cell.cfg), 3,
+                                            "cpu")))
+    assert served.keys() == drawn.keys()
+    for k, v in served.items():
+        want = x[k] if k[-2:-1] == ("ffn",) and k[-1] != "router" \
+            else drawn[k]
+        assert v.dtype == want.dtype and torch.equal(v, want), k
+
+
+def test_int8x_on_a_dense_tree_is_int8():
+    a, _ = _served(small.config(), "int8")
+    b, _ = _served(small.config(), "int8x")
+    assert a.keys() == b.keys()
+    assert all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+               for k in a)
+
+
+@pytest.mark.parametrize("control", sorted(weights.CONTROLS))
+def test_every_control_is_a_choice_of_run(control):
+    from squeeze_bench import run
+    args = run.parse(["--workload", "w", "--seed", "1", "--seconds", "1",
+                      "--control", control])
+    assert args.control == control

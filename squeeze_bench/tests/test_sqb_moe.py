@@ -2,9 +2,13 @@
 against the port, the causal rule that sets aside the slots computed from
 a routing decision too close to call, and a small mixture-of-experts cell
 (``small.py``'s model with 8 experts, top 2, capacity factor 4.0) driven
-end to end, honest and with faults planted in the port."""
+end to end, honest and with faults planted in the port; the experts' own
+number, ``expert_kv_err``, and its limit in the configuration's file."""
 import dataclasses
+import json
+import math
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -23,22 +27,35 @@ torch.set_num_threads(1)
 MOE = {"num_experts": 8, "num_experts_per_tok": 2,
        "moe_capacity_factor": 4.0, "sliding_window": 0, "qkv_bias": False,
        "rope_theta": 1e6, "norm_eps": 1e-5}
+MIXTRAL = Path(__file__).resolve().parents[1] / "configs" \
+    / "mixtral-8x7b-16l.json"
+
+# expert_kv_err's limit on the small cell, from its sound readings on the
+# CPU (seed 3, the prompts' hash seeds 1-28): 0.00147-0.00287; the
+# expert-only fault of ``test_an_expert_only_fault_is_caught`` read
+# 0.0085-0.0115 on the same 28
+SMALL_LIMITS = {"expert_kv_err": 0.005}
 
 
 def moe_config(**model) -> dict:
     """``small.py``'s cell on the port's Mixtral architecture: 8 experts,
-    top 2, dropless (capacity factor 4.0 = 8 / 2), full attention."""
+    top 2, dropless (capacity factor 4.0 = 8 / 2), full attention, with
+    its own limit of ``expert_kv_err``."""
     c = small.config()
     c["arch"] = "mixtral-8x7b"
     c["reference"] = "moe"
     c["model"].update(MOE, **model)
+    c["limits"] = dict(SMALL_LIMITS)
+    c["limits_set_from"] = "the small cell's sound runs on the CPU, " \
+        "0.00147-0.00287 over 28 hash seeds of the prompts"
     return c
 
 
 def execute(cfg, seed=3, tie=()):
     """One small saturated run and its collected rows.  ``tie``: router
-    columns set equal to the first of them in every layer before the
-    window."""
+    columns set equal to the first of them, before the window, in every
+    layer but layer 0 (whose routes ``expert_kv_err``'s layer 1 is
+    computed from)."""
     with pytest.MonkeyPatch.context() as mp:
         if tie:
             real = harness.Cell.warm_up
@@ -46,7 +63,7 @@ def execute(cfg, seed=3, tie=()):
             def tied(cell):
                 r = cell.params["decoder"]["groups"][0]["ffn"]["router"]
                 for c in tie[1:]:
-                    r[:, :, c] = r[:, :, tie[0]]
+                    r[1:, :, c] = r[1:, :, tie[0]]
                 real(cell)
             mp.setattr(harness.Cell, "warm_up", tied)
         run = harness.execute(cfg, small.mix("saturated"), seed=seed,
@@ -57,12 +74,15 @@ def execute(cfg, seed=3, tie=()):
 
 def judge(cfg, run, items, kv_cache):
     """The verdict and numbers of rows collected once, as ``run.py``
-    judges them, through ``kv_cache`` in the reference's place."""
+    judges them, through ``kv_cache`` in the reference's place, held to
+    the limits of ``cfg``."""
     numbers = check.bookkeeping(run)
     params, sizes = run["cell"].params, check.sizes(cfg)
+    ref = check.reference(cfg)
     numbers.update(check.judge(run, items, lambda tok: kv_cache(
-        sizes, params, tok, dtype=torch.bfloat16)))
-    return check.verdict(numbers), numbers
+        sizes, params, tok, dtype=torch.bfloat16),
+        at=check.layers(ref, sizes)))
+    return check.verdict(numbers, check.limits(cfg, ref)), numbers
 
 
 def run_cell(cfg, seed=3, reference=None):
@@ -222,6 +242,7 @@ def test_every_field_is_read_or_refused(ref, arch, model):
     ({"local_window": 8}, "local_window"),
     ({"block_pattern": ("local", "attn")}, "block_pattern"),
     ({"tail_pattern": ("attn",)}, "tail_pattern"),
+    ({"num_layers": 1}, "no layer's K/V were computed from an expert"),
 ])
 def test_moe_covers_refuses_what_it_does_not_compute(changes, reason):
     _, sizes = _small_moe()
@@ -311,14 +332,16 @@ def _reversed_ties(cfg, p, xt):
 
 
 def test_tied_router_columns_are_set_aside(monkeypatch):
-    """Router columns 0, 1 and 2 equal in every layer, and the port
-    breaking ties the other way: wherever the three hold the 2nd and 3rd
-    choices the margin is 0 and the two sides pick different experts.  On
-    the same rows, the slots computed from such a choice are set aside and
-    the run is correct; judged whole, it is not."""
+    """All eight router columns equal in layers 1 and 2 of three, and the
+    port breaking ties the other way: every decision there has margin 0
+    and the two sides pick different experts.  On the same rows, the
+    slots computed from such a choice (layer 2's) are set aside and the
+    run is correct; judged whole, it is not.  Layer 0 keeps its router:
+    ties there set all of layer 1 aside on some prompts, and then
+    ``expert_kv_err`` has nothing to read, which fails."""
     monkeypatch.setattr(port_moe, "route", _reversed_ties)
-    cfg = moe_config()
-    run, items = execute(cfg, tie=(0, 1, 2))
+    cfg = moe_config(num_layers=3)
+    run, items = execute(cfg, tie=tuple(range(8)))
     (ok, shown), numbers = judge(cfg, run, items, moe.kv_cache)
     assert ok, shown
     assert numbers["judged_share"] < 1.0
@@ -367,3 +390,88 @@ def test_dense_numbers_are_the_same_with_an_all_settled_mask():
     a, b = check.judge(run, items, two), check.judge(run, items, three)
     assert a["rows_judged"] >= 1 and a["judged_share"] == 1.0
     assert a == b
+
+
+# -- the experts' own number: expert_kv_err ------------------------------
+
+
+def test_the_mixtral_file_passes_the_reference_check():
+    """The committed configuration is judged by ``moe`` on the sizes the
+    program runs (``check.sizes``; no weights drawn), which are the file's,
+    and states ``expert_kv_err``'s limit, read at layer 1."""
+    cfg = json.loads(MIXTRAL.read_text())
+    ref = check.reference(cfg)
+    assert ref is moe
+    sizes = check.sizes(cfg)
+    assert {k: sizes[k] for k in cfg["model"]} == cfg["model"]
+    assert check.layers(ref, sizes) == {"expert_kv_err": 1}
+    assert check.limits(cfg, ref) == {
+        **check.LIMITS, "expert_kv_err": cfg["limits"]["expert_kv_err"]}
+
+
+@pytest.mark.parametrize("reading", ["at", "above", "unread"])
+def test_verdict_holds_expert_kv_err_to_the_files_limit(reading):
+    """At the file's limit the number passes; the next float above it, or
+    no reading (nothing judged at its layer), fails.  It is shown after
+    the shared limits, beside the file's limit."""
+    cfg = json.loads(MIXTRAL.read_text())
+    lim = cfg["limits"]["expert_kv_err"]
+    numbers = dict.fromkeys(check.LIMITS, 0)
+    numbers.update(rows_judged=5, judged_share=0.5, expert_kv_err={
+        "at": lim, "above": math.nextafter(lim, 1.0), "unread": None}[
+            reading])
+    ok, shown = check.verdict(numbers, check.limits(cfg, moe))
+    assert ok is (reading == "at")
+    assert shown["expert_kv_err"] == [numbers["expert_kv_err"], lim]
+    assert list(shown) == [*check.LIMITS, "expert_kv_err", *check.FLOORS]
+
+
+def test_an_expert_only_fault_is_caught(monkeypatch):
+    """Each expert block's output scaled by 1.03 as the port computes it,
+    attention untouched: lower precision in the experts, in small.  Over
+    the prompts' hash seeds 1-28 it read ``expert_kv_err`` 0.0085-0.0115,
+    against the sound 0.0015-0.0029 and the small cell's limit 0.005,
+    while ``kv_head_err`` read 0.0095-0.0121 and ``kv_err`` 0.0050-0.0065,
+    under the shared 0.016 and 0.020: only ``expert_kv_err`` fails."""
+    real = port_moe.moe_block
+    monkeypatch.setattr(port_moe, "moe_block",
+                        lambda cfg, p, x: real(cfg, p, x) * 1.03)
+    (ok, shown), numbers = run_cell(moe_config())
+    assert not ok
+    failed = [k for k, (v, lim) in shown.items()
+              if (v < lim if k in check.FLOORS else v > lim)]
+    assert failed == ["expert_kv_err"], shown
+    assert numbers["kv_head_err"] <= check.LIMITS["kv_head_err"]
+    assert numbers["kv_err"] <= check.LIMITS["kv_err"]
+
+
+def test_honest_moe_cell_reads_expert_kv_err_at_layer_1():
+    (ok, shown), numbers = run_cell(moe_config(), seed=7)
+    assert ok, shown
+    assert numbers["expert_kv_err"] <= SMALL_LIMITS["expert_kv_err"]
+    assert numbers["kv_layers"][1] == round(numbers["expert_kv_err"], 5)
+
+
+def test_a_dense_runs_checks_are_the_shared_ones():
+    """A dense configuration states no limit and its reference asks for no
+    number: its limits are ``LIMITS``; judged with its reference's layers
+    the numbers are those judged without, bit for bit; and the checks
+    shown are those of the shared limits, keys and order kept."""
+    cfg = small.config()
+    run = harness.execute(cfg, small.mix("saturated"), seed=5, seconds=1.6,
+                          traced=False, device="cpu",
+                          t_process=time.perf_counter())
+    items = check.collect(run)
+    params, sizes = run["cell"].params, check.sizes(cfg)
+    ref = check.reference(cfg)
+    assert check.limits(cfg, ref) == check.LIMITS
+    assert check.layers(ref, sizes) == {}
+
+    def kv(tok):
+        return ref.kv_cache(sizes, params, tok, dtype=torch.bfloat16)
+    plain = check.judge(run, items, kv)
+    assert check.judge(run, items, kv, at=check.layers(ref, sizes)) == plain
+    numbers = {**check.bookkeeping(run), **plain}
+    got = check.verdict(numbers, check.limits(cfg, ref))
+    assert got == check.verdict(numbers)
+    assert got[0] and list(got[1]) == [*check.LIMITS, *check.FLOORS]

@@ -2,8 +2,9 @@
 of a module under ``reference/`` in its ``"reference"`` key, ``decoder``
 where it names none.  ``run.py`` refuses, before set-up and before its
 look for a card, a configuration whose reference is unknown or does not
-cover its ``model``; a module added beside ``decoder`` judges the
-configurations that name it."""
+cover its ``model``, or whose file leaves out, or states wrongly, a limit
+of a number its reference asks for; a module added beside ``decoder``
+judges the configurations that name it."""
 import json
 import os
 import shutil
@@ -20,10 +21,19 @@ from squeeze_bench.reference import decoder
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 QWEN = BENCH / "configs" / "qwen2-7b.json"
+MIXTRAL = BENCH / "configs" / "mixtral-8x7b-16l.json"
 
 
 def _config(**changes) -> dict:
     c = json.loads(QWEN.read_text())
+    c.update(changes)
+    return c
+
+
+def _mixtral(*drop, **changes) -> dict:
+    c = json.loads(MIXTRAL.read_text())
+    for k in drop:
+        del c[k]
     c.update(changes)
     return c
 
@@ -54,6 +64,37 @@ def test_a_model_the_reference_does_not_cover_is_refused():
     c["model"]["num_experts"] = 8
     with pytest.raises(ValueError, match="does not cover.*dense block"):
         check.reference(c)
+
+
+@pytest.mark.parametrize("config,reason", [
+    (_mixtral("limits"), "reference 'moe' asks for expert_kv_err, whose "
+     "limit the configuration does not state under limits"),
+    (_mixtral(limits={}), "asks for expert_kv_err"),
+    (_mixtral(limits={"expert_kv_err": 0}), "not a positive number"),
+    (_mixtral(limits={"expert_kv_err": -0.004}), "not a positive number"),
+    (_mixtral(limits={"expert_kv_err": "0.004"}), "not a positive number"),
+    (_mixtral(limits={"expert_kv_err": True}), "not a positive number"),
+    (_mixtral(limits={"expert_kv_err": float("nan")}),
+     "not a positive number"),
+    (_mixtral(limits={"expert_kv_err": float("inf")}),
+     "not a positive number"),
+    (_mixtral(limits=[0.004]), "not an object"),
+    (_mixtral(limits={"expert_kv_err": 0.004, "kv_err": 0.05}),
+     "limits states kv_err, which reference 'moe' asks for no number of"),
+    (_mixtral("limits_set_from"), "limits_set_from does not say"),
+    (_mixtral(limits_set_from=" "), "limits_set_from does not say"),
+    (_config(limits={"kv_head_err": 0.5}, limits_set_from="a guess"),
+     "limits states kv_head_err, which reference 'decoder' asks for no"),
+    (_config(limits={"expert_kv_err": 0.004}, limits_set_from="a guess"),
+     "limits states expert_kv_err, which reference 'decoder' asks for no"),
+])
+def test_a_limit_the_file_leaves_out_or_states_wrongly_is_refused(
+        config, reason):
+    """A configuration states the limit of each number its reference asks
+    for, a positive number, and the readings it was set from; it states
+    no other, so no file loosens a shared limit."""
+    with pytest.raises(ValueError, match=reason):
+        check.reference(config)
 
 
 def _tree(tmp_path: Path, config: dict, reference: str = "") -> Path:
@@ -96,6 +137,14 @@ EXPERTS = dict(json.loads(QWEN.read_text())["model"], num_experts=8,
     pytest.param(_config(reference="moe"), "reference 'moe' does not cover "
                  "this configuration's model: this reference is the "
                  "sparse-expert block", id="moe refuses a dense model"),
+    pytest.param(_mixtral("limits"), "reference 'moe' asks for "
+                 "expert_kv_err, whose limit the configuration does not "
+                 "state under limits",
+                 id="moe without its expert_kv_err limit"),
+    pytest.param(_config(limits={"kv_err": 0.05}, limits_set_from="a guess"),
+                 "limits states kv_err, which reference 'decoder' asks for "
+                 "no number of",
+                 id="a dense file that loosens a shared limit"),
 ])
 def test_run_refuses_before_it_looks_for_a_card(tmp_path, config, reason):
     """Exit 2 with one line on standard error and nothing on standard
