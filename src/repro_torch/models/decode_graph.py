@@ -26,6 +26,12 @@ blocks and the encoder-decoder family stay eager).  Elsewhere every step
 runs eagerly from the same loaded buffers.  So ``DecodeGraph`` is how an
 engine runs each of its decode steps, captured or not; the class keeps the
 name of what it adds to an eager step, the graph.
+
+A model with experts gets a ``moe.Probe`` (``probe``): each of its steps,
+eager or captured, runs under it, so every replay writes the expert
+blocks' counters and timing events again, and ``probe.read()`` after a
+step reads them.  A model without experts has none, and its graph gains
+no node.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ import torch
 from repro_torch.core.elastic import sync
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import tree_leaves
 from repro_torch.sharding import current_ctx
 
@@ -78,6 +84,7 @@ class DecodeGraph:
         self.graph = None
         # ``ops.LAUNCHES`` counted by the captured step: a replay adds them
         self.launches: dict[str, int] = {}
+        self.probe = moe.Probe(cfg, self.device) if cfg.num_experts else None
 
     def load(self, tokens, positions) -> None:
         """Copy the host's tokens (rows, 1) and positions (rows,) into the
@@ -107,8 +114,7 @@ class DecodeGraph:
         key = cache_key(caches) if eligible(self.cfg, self.device) else None
         if key is None or key != self.key:
             self.graph, self.key = None, key
-            M.decode_step(self.cfg, self.params, self.tokens, self.positions,
-                          caches)
+            self._decode(caches)
             return "eager"
         if self.graph is None:
             self._capture(caches)
@@ -127,14 +133,17 @@ class DecodeGraph:
         stream.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), torch.cuda.stream(stream):
-            M.decode_step(self.cfg, self.params, self.tokens, self.positions,
-                          caches)
+            self._decode(caches)
             counted = dict(ops.LAUNCHES)
             graph.capture_begin()
-            M.decode_step(self.cfg, self.params, self.tokens, self.positions,
-                          caches)
+            self._decode(caches)
             graph.capture_end()
         current.wait_stream(stream)
         self.launches = {k: ops.LAUNCHES[k] - n for k, n in counted.items()}
         ops.LAUNCHES.update(counted)
         self.graph = graph
+
+    def _decode(self, caches) -> None:
+        with moe.probing(self.probe):
+            M.decode_step(self.cfg, self.params, self.tokens, self.positions,
+                          caches)

@@ -146,9 +146,11 @@ def block_forward(cfg, kind: str, p, x, *, mode: str, cache, positions):
         h = rmsnorm(p["pn1"], h, cfg.norm_eps)
     x = x + h
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    with span("mlp"):
-        h2 = moe_mod.moe_block(cfg, p["ffn"], h2) if cfg.num_experts \
-            else mlp(cfg, p["ffn"], h2, mode)
+    if cfg.num_experts:
+        h2 = moe_mod.moe_block(cfg, p["ffn"], h2)      # its own span: moe
+    else:
+        with span("mlp"):
+            h2 = mlp(cfg, p["ffn"], h2, mode)
     if cfg.post_norms:
         h2 = rmsnorm(p["pn2"], h2, cfg.norm_eps)
     return x + h2

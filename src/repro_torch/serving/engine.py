@@ -31,7 +31,9 @@ start paths (``start.cold``, ``start.warm``, ``start.restore``), the
 snapshot capture, ``plug`` and ``unplug``, and the decode step's
 ``decode.inputs``, ``decode.dispatch`` (the model's blocks enqueued, or
 the step's graph replayed; its ``graph`` attribute says which),
-``decode.sync`` and ``decode.account``.  ``request.queue`` and ``request``
+``decode.sync``, ``decode.moe`` (a model with experts: the device
+readings of the step's expert blocks, ``moe.Probe.read``) and
+``decode.account``.  ``request.queue`` and ``request``
 run from a submission to its admission and to its end.  Otherwise a span
 costs one flag test, and the virtual clock never reads them.
 
@@ -72,7 +74,7 @@ from repro_torch.models import model as M
 from repro_torch.models.decode_graph import DecodeGraph
 from repro_torch.models.layers import tree_leaves, tree_unflatten
 from repro_torch.serving.request import Request, State, slo_tier_of
-from repro_torch.spans import begin, span
+from repro_torch.spans import begin, recording, span
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +578,9 @@ class ServeEngine:
         with span("decode.sync"):
             self._sync()
             wall = time.perf_counter() - t0
+        if self._graph.probe is not None and recording():
+            with span("decode.moe") as s:
+                s.note(**(self._graph.probe.read() or {}))
         with span("decode.account"):
             self.now += wall
             self.events.append(StepEvent(self.now, "decode", wall,
